@@ -1,0 +1,124 @@
+"""Single-device Canny model on PyTorch: the ``fused`` path of ``CannyTPU``.
+
+Pipeline per frame: K1 (front end with the threshold compares and the
+32-to-1 packing) -> K2 (packed hysteresis flood) -> unpack to int16
+{0, 255}.  The ``packed`` entry points stop before the unpack.  On a CUDA
+device both stages are the hand-written kernels; with ``device="cpu"`` the
+same wrappers run their plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels.frontend import frontend
+from ..kernels.hysteresis_packed import hysteresis_packed
+from ..ops.gaussian import gaussian_kernel
+from ..ops.packed import unpack_edges
+
+MODES = ("component", "strict-reference")
+
+
+class CannyTorch:
+    """Canny edge detector on one device.
+
+    Example::
+
+        model = CannyTorch(sigma=1.0)             # runs on the card
+        edges = model(img_u8, 50, 150)            # (H, W) int16 {0,255}
+        bits = model.packed(img_u8, 50, 150)      # (H, ceil(W/32)) uint32
+
+    ``hysteresis_mode``: "component" (8-connected rule) or
+    "strict-reference" (the reference BFS's missing (1,0)->(0,1) edge).
+    ``device``: "cuda" (default) or "cpu" for the plain PyTorch versions.
+    Inputs may be NumPy arrays or tensors; outputs are tensors on
+    ``device``.
+    """
+
+    def __init__(self, sigma: float = 1.0, hysteresis_mode: str = "component",
+                 device="cuda"):
+        self.sigma = sigma
+        self._setup(gaussian_kernel(sigma), hysteresis_mode, device)
+
+    @classmethod
+    def from_numpy_params(cls, kernel: np.ndarray, *,
+                          hysteresis_mode: str = "component", device="cuda"):
+        """A model with the given float32 Gaussian taps (e.g. ``CannyTPU.kernel``)."""
+        model = cls.__new__(cls)
+        model.sigma = None
+        model._setup(kernel, hysteresis_mode, device)
+        return model
+
+    def _setup(self, kernel, hysteresis_mode, device):
+        if hysteresis_mode not in MODES:
+            raise ValueError(f"unknown hysteresis mode: {hysteresis_mode!r}")
+        kernel = np.asarray(kernel, np.float32)
+        if kernel.ndim != 1 or kernel.shape[0] % 2 != 1:
+            raise ValueError("kernel must be 1-D with an odd number of taps")
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                               "run the plain PyTorch versions")
+        self.hysteresis_mode = hysteresis_mode
+        self.kernel = kernel
+        self.device = device
+        self.taps = torch.from_numpy(kernel.copy()).to(device)
+
+    @property
+    def window(self) -> int:
+        return int(self.kernel.shape[0])
+
+    def _frame_packed(self, img, min_val, max_val):
+        h, w = img.shape
+        weak, strong = frontend(img, self.taps, (min_val, max_val))
+        return hysteresis_packed(
+            weak, strong, h, w,
+            strict=self.hysteresis_mode == "strict-reference")
+
+    def _input(self, img):
+        if isinstance(img, np.ndarray):
+            img = torch.from_numpy(np.ascontiguousarray(img))
+        return img.to(self.device)
+
+    def __call__(self, img, min_val: int, max_val: int):
+        self._validate(img, min_val, max_val)
+        img = self._input(img)
+        return unpack_edges(self._frame_packed(img, min_val, max_val),
+                            img.shape[-1])
+
+    def packed(self, img, min_val: int, max_val: int):
+        """Edge bitmask (H, ceil(W/32)) uint32 (bit b of word j = column 32j+b)."""
+        self._validate(img, min_val, max_val)
+        return self._frame_packed(self._input(img), min_val, max_val)
+
+    def batch(self, imgs, min_val: int, max_val: int):
+        """(B, H, W) -> (B, H, W) int16 {0, 255}, one frame at a time."""
+        imgs = self._batch_input(imgs, min_val, max_val)
+        return unpack_edges(torch.stack(
+            [self._frame_packed(f, min_val, max_val) for f in imgs]),
+            imgs.shape[-1])
+
+    def batch_packed(self, imgs, min_val: int, max_val: int):
+        """(B, H, W) -> (B, H, ceil(W/32)) uint32 edge bitmasks."""
+        imgs = self._batch_input(imgs, min_val, max_val)
+        return torch.stack([self._frame_packed(f, min_val, max_val)
+                            for f in imgs])
+
+    def _batch_input(self, imgs, min_val, max_val):
+        if imgs.ndim != 3:
+            raise ValueError("batch expects (B, H, W)")
+        self._validate(imgs[0], min_val, max_val)
+        return self._input(imgs)
+
+    @staticmethod
+    def _validate(img, min_val, max_val):
+        # the messages and types of CannyTPU._validate (src/main.cpp:63-76)
+        if max_val <= min_val:
+            raise ValueError("minVal must be less than maxVal")
+        if not (0 <= min_val <= 255):
+            raise ValueError("minVal must be in the range of [0,255]")
+        if not (0 <= max_val <= 255):
+            raise ValueError("maxVal must be in the range of [0,255]")
+        if img.dtype not in (np.uint8, torch.uint8):
+            raise TypeError("input image must be uint8 grayscale")

@@ -1,0 +1,343 @@
+"""Smoke test of the PyTorch/CUDA port on one GPU: builds, checks and times
+the kernels of the main path (``CannyTorch``: K1 front end -> K2 packed
+flood -> unpack).
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero and prints no result):
+  1. the card's name and power limit (nvidia-smi);
+  2. build every kernel from ``canny_edge_tpu_torch/kernels/csrc`` (nvcc);
+  3. K1 against its plain PyTorch version on the card, bit-equal, in nm and
+     threshold mode (5 sigmas, 1080p and 4K, odd shapes, 3 threshold pairs);
+  4. K2 against its plain version, bit-equal, component and strict (K1's
+     masks at 1080p and 4K, a serpentine chain, random masks, W=33, H=1);
+  5. the full ``CannyTorch`` path at 1080p and 4K (sigma 1.4, 30/90):
+     ``__call__``, ``packed`` and ``batch_packed`` (B=4) in both modes, with
+     every launch count set to 0 just before and read just after, then held
+     against the plain pipeline on the card; plus the card against the CPU
+     on a small frame;
+  6. times with CUDA events (median over many launches) of the kernels,
+     their plain versions and the whole frame.
+The line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.  Every measured number also goes to
+standard error as one ``report:`` JSON line.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and the float32
+# rate outside the tensor cores (also taken for int32 operations)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+SIGMA, MN, MX = 1.4, 30, 90
+SIZES = {"1080p": (1080, 1920), "4k": (2160, 3840)}
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def make_image(h, w, seed=0):
+    """The headline benchmark's frame: sinusoid, disc and noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = 96 + 64 * np.sin(xx / 17.0) * np.cos(yy / 23.0)
+    img += 80 * (((xx - w / 2) ** 2 + (yy - h / 2) ** 2) < (min(h, w) / 3) ** 2)
+    img += rng.normal(0, 6, size=(h, w))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def snake_nm(h, w):
+    """Serpentine weak chain with one strong seed: many flood steps."""
+    nm = np.zeros((h, w), np.int32)
+    for r in range(4, h - 4, 8):
+        nm[r, 4:w - 4] = 30
+    for i, r in enumerate(range(4, h - 12, 8)):
+        c = w - 5 if i % 2 == 0 else 4
+        nm[r:r + 9, c] = 30
+    nm[4, 4] = 200
+    return nm
+
+
+def main():
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    from canny_edge_tpu_torch import CannyTorch
+    from canny_edge_tpu_torch.kernels import _build
+    from canny_edge_tpu_torch.kernels import frontend as kfe
+    from canny_edge_tpu_torch.kernels import hysteresis_packed as khp
+    from canny_edge_tpu_torch.ops import packed as P
+    from canny_edge_tpu_torch.ops import window as Wn
+    from canny_edge_tpu_torch.ops.gaussian import gaussian_kernel
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    report = {}
+
+    # ---- 1. the card ----
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    card = smi[0] if smi else "nvidia-smi gave nothing"
+    print(card, flush=True)
+    report["card"] = card
+    report["torch"] = f"{torch.__version__} cuda {torch.version.cuda}"
+
+    # ---- 2. build ----
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    report["build_s"] = time.perf_counter() - t0
+    log(f"build: {report['build_s']:.1f}s {built}")
+    print(f"build seconds: {report['build_s']:.1f}", flush=True)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def u32eq(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    # ---- 3. K1 against its plain version ----
+    t0 = time.perf_counter()
+    k1_cases = 0
+    k1_err = 0
+    for sigma in (0.5, 1.0, 1.4, 2.0, 3.0):
+        kern = gaussian_kernel(sigma)
+        taps = torch.from_numpy(kern).to(dev)
+        shapes = list(SIZES.values()) + [(257, 333), (1, 50), (50, 1), (3, 200)]
+        for h, w in shapes:
+            img = torch.from_numpy(make_image(h, w, seed=h + w)).to(dev)
+            ref = Wn.frontend_nm(img, kern)
+            nm = kfe.frontend(img, taps)
+            sync()
+            k1_err = max(k1_err, int((nm.to(torch.int32) - ref).abs().max()))
+            check(torch.equal(nm.to(torch.int32), ref),
+                  f"K1 nm differs: sigma {sigma} {h}x{w}")
+            for mn, mx in ((30, 90), (0, 40), (50, 150)):
+                weak, strong = kfe.frontend(img, taps, (mn, mx))
+                sync()
+                check(u32eq(weak, P.pack_mask(ref >= mn))
+                      and u32eq(strong, P.pack_mask(ref >= mx)),
+                      f"K1 masks differ: sigma {sigma} {h}x{w} {mn}/{mx}")
+            k1_cases += 1
+    report["k1_check"] = {"cases": k1_cases, "s": time.perf_counter() - t0}
+    log(f"K1 bit-equal on {k1_cases} image cases x 4 modes")
+
+    # ---- 4. K2 against its plain version ----
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    taps14 = torch.from_numpy(gaussian_kernel(SIGMA)).to(dev)
+    flood_cases = {}
+    for name, (h, w) in SIZES.items():
+        img = torch.from_numpy(make_image(h, w)).to(dev)
+        flood_cases[f"k1_masks_{name}"] = (kfe.frontend(img, taps14, (MN, MX)),
+                                           h, w)
+    sn = torch.from_numpy(snake_nm(1080, 1920)).to(dev)
+    flood_cases["snake_1080p"] = ((P.pack_mask(sn >= 10), P.pack_mask(sn >= 100)),
+                                  1080, 1920)
+    for dens in (0.5, 0.6):
+        weak = rng.random((1080, 1920)) < dens
+        strong = weak & (rng.random((1080, 1920)) < 0.002)
+        flood_cases[f"random_{dens}"] = (
+            (P.pack_mask(torch.from_numpy(weak).to(dev)),
+             P.pack_mask(torch.from_numpy(strong).to(dev))), 1080, 1920)
+    quirk = torch.zeros((16, 64), dtype=torch.int32, device=dev)
+    quirk[1, 0], quirk[8, 40] = 10, 10   # strong
+    quirk[0, 1:10], quirk[8, 30:60] = 3, 5   # weak runs; the first is
+    # reachable only through the promotion strict mode excludes
+    flood_cases["quirk_16x64"] = ((P.pack_mask(quirk >= 2),
+                                   P.pack_mask(quirk >= 10)), 16, 64)
+    for h, w in ((64, 33), (1, 1000), (1, 1), (40, 1)):
+        weak = rng.random((h, w)) < 0.6
+        strong = weak & (rng.random((h, w)) < 0.05)
+        flood_cases[f"random_{h}x{w}"] = (
+            (P.pack_mask(torch.from_numpy(weak).to(dev)),
+             P.pack_mask(torch.from_numpy(strong).to(dev))), h, w)
+    k2_steps = {}
+    k2_err = 0
+    for name, ((weak, strong), h, w) in flood_cases.items():
+        for strict in (False, True):
+            out, steps = khp.hysteresis_packed(weak, strong, h, w,
+                                               strict=strict, return_steps=True)
+            sync()
+            ref, rounds = P.hysteresis_packed_masks(weak, strong, h, w,
+                                                    strict=strict)
+            # largest per-pixel difference (edge bits are 0 or 1)
+            k2_err = max(k2_err, int((P.unpack_mask(out, w).to(torch.int8)
+                                      - P.unpack_mask(ref, w).to(torch.int8))
+                                     .abs().max()))
+            check(u32eq(out, ref), f"K2 differs: {name} strict={strict}")
+            k2_steps[f"{name}/{'strict' if strict else 'component'}"] = {
+                "kernel_steps": int(steps), "plain_rounds": rounds}
+    report["k2_check"] = {"steps": k2_steps, "s": time.perf_counter() - t0}
+    log(f"K2 bit-equal on {len(flood_cases)} mask cases x 2 modes: {k2_steps}")
+
+    # ---- 5. the main path: CannyTorch, launch counts from 0 ----
+    t0 = time.perf_counter()
+    frames = {name: [make_image(h, w, seed=s) for s in range(4)]
+              for name, (h, w) in SIZES.items()}
+    models = {m: CannyTorch(SIGMA, hysteresis_mode=m)
+              for m in ("component", "strict-reference")}
+    kfe.launches = 0
+    khp.launches = 0
+    outs = {}
+    for mode, model in models.items():
+        for name, fr in frames.items():
+            outs[mode, name, "call"] = model(fr[0], MN, MX)
+            outs[mode, name, "packed"] = model.packed(fr[0], MN, MX)
+            outs[mode, name, "batch_packed"] = model.batch_packed(
+                np.stack(fr), MN, MX)
+    sync()
+    counts = {"frontend": kfe.launches, "hysteresis_packed": khp.launches}
+    log(f"main path launches: {counts}")
+    check(counts["frontend"] > 0 and counts["hysteresis_packed"] > 0,
+          f"a kernel of the main path was not launched: {counts}")
+
+    def plain_packed(img, strict):
+        h, w = img.shape
+        weak, strong = Wn.frontend_nm(img, gaussian_kernel(SIGMA), (MN, MX))
+        return P.hysteresis_packed_masks(weak, strong, h, w, strict=strict)[0]
+
+    for mode in models:
+        strict = mode == "strict-reference"
+        for name, fr in frames.items():
+            refs = [plain_packed(torch.from_numpy(f).to(dev), strict)
+                    for f in fr]
+            got = outs[mode, name, "call"]
+            check(got.dtype == torch.int16 and got.shape == fr[0].shape,
+                  f"__call__ output {got.dtype} {tuple(got.shape)}")
+            check(torch.equal(got, P.unpack_edges(refs[0], fr[0].shape[1])),
+                  f"__call__ differs: {mode} {name}")
+            check(u32eq(outs[mode, name, "packed"], refs[0]),
+                  f"packed differs: {mode} {name}")
+            check(u32eq(outs[mode, name, "batch_packed"], torch.stack(refs)),
+                  f"batch_packed differs: {mode} {name}")
+            edge_px = int((got == 255).sum())
+            check(0 < edge_px < got.numel() // 4,
+                  f"implausible edge count {edge_px}: {mode} {name}")
+            report.setdefault("edge_px", {})[f"{mode}/{name}"] = edge_px
+    small = make_image(256, 256, seed=3)
+    for mode, model in models.items():
+        cpu = CannyTorch(SIGMA, hysteresis_mode=mode, device="cpu")
+        check(torch.equal(model(small, MN, MX).cpu(), cpu(small, MN, MX)),
+              f"card and CPU differ on 256x256: {mode}")
+    report["main_path"] = {"launches": counts, "s": time.perf_counter() - t0}
+    log("main path bit-equal to the plain pipeline")
+
+    # ---- 6. times ----
+    def time_ms(fn, n=20, reps=5):
+        fn()
+        sync()
+        samples = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(n):
+                fn()
+            b.record()
+            sync()
+            samples.append(a.elapsed_time(b) / n)
+        return float(np.median(samples))
+
+    model = models["component"]
+    times = {}
+    for name, (h, w) in SIZES.items():
+        img = torch.from_numpy(frames[name][0]).to(dev)
+        weak, strong = kfe.frontend(img, taps14, (MN, MX))
+        kern = gaussian_kernel(SIGMA)
+        _, steps = khp.hysteresis_packed(weak, strong, h, w, return_steps=True)
+        _, rounds = P.hysteresis_packed_masks(weak, strong, h, w)
+        t = {
+            "k1_ms": time_ms(lambda: kfe.frontend(img, taps14, (MN, MX)), 50),
+            "k2_ms": time_ms(lambda: khp.hysteresis_packed(weak, strong, h, w),
+                             50),
+            "frame_ms": time_ms(lambda: model(img, MN, MX), 20),
+            "frame_packed_ms": time_ms(lambda: model.packed(img, MN, MX), 20),
+            "k1_plain_ms": time_ms(
+                lambda: Wn.frontend_nm(img, kern, (MN, MX)), 3, 3),
+            "k2_plain_ms": time_ms(
+                lambda: P.hysteresis_packed_masks(weak, strong, h, w), 3, 3),
+            "frame_plain_ms": time_ms(
+                lambda: P.unpack_edges(plain_packed(img, False), w), 3, 3),
+            "k2_steps": int(steps),
+            "k2_plain_rounds": rounds,
+        }
+        wd = -(-w // 32)
+        window = len(kern)
+        # K1: each input byte read once, the two packed masks written once;
+        # per pixel 2 passes x (window mul + window add) + 2 divides + floor,
+        # ~14 Sobel, ~10 magnitude, ~16 NMS and 2 threshold operations
+        k1_bytes = h * w + 2 * h * wd * 4
+        k1_ops = h * w * (4 * window + 45)
+        # K2: two masks read, one written; one dilation + row and column
+        # flood over every word (~40 operations a word) is the least work
+        k2_bytes = 3 * h * wd * 4
+        k2_ops = 40 * h * wd
+        for k, b, o in (("k1", k1_bytes, k1_ops), ("k2", k2_bytes, k2_ops)):
+            tb, to = b / HBM_BYTES_PER_S * 1e3, o / F32_OPS_PER_S * 1e3
+            t[f"{k}_bound_ms"] = max(tb, to)
+            t[f"{k}_bound_by"] = "bytes" if tb >= to else "operations"
+        times[name] = t
+        log(f"times {name}: {t}")
+    (sw, ss), h, w = flood_cases["snake_1080p"]
+    _, steps = khp.hysteresis_packed(sw, ss, h, w, return_steps=True)
+    times["snake_1080p"] = {
+        "k2_ms": time_ms(lambda: khp.hysteresis_packed(sw, ss, h, w), 3, 3),
+        "k2_steps": int(steps)}
+    log(f"times snake: {times['snake_1080p']}")
+    report["times"] = times
+
+    t1 = times["1080p"]
+    kernels = [
+        {"name": "frontend", "route": "cuda",
+         "source": "canny_edge_tpu_torch/kernels/csrc/frontend.cu",
+         "replaces": "canny_edge_tpu/kernels/frontend.py:153",
+         "launches": counts["frontend"], "max_abs_err": k1_err,
+         "ms": t1["k1_ms"], "plain_ms": t1["k1_plain_ms"],
+         "bound_ms": t1["k1_bound_ms"], "bound_by": t1["k1_bound_by"],
+         "library_ms": None, "match": True, "shape": "1080x1920",
+         "ms_4k": times["4k"]["k1_ms"]},
+        {"name": "hysteresis_packed", "route": "cuda",
+         "source": "canny_edge_tpu_torch/kernels/csrc/hysteresis_packed.cu",
+         "replaces": "canny_edge_tpu/kernels/hysteresis_packed.py:180",
+         "launches": counts["hysteresis_packed"], "max_abs_err": k2_err,
+         "ms": t1["k2_ms"], "plain_ms": t1["k2_plain_ms"],
+         "bound_ms": t1["k2_bound_ms"], "bound_by": t1["k2_bound_by"],
+         "library_ms": None, "match": True, "shape": "1080x1920",
+         "steps": t1["k2_steps"], "ms_4k": times["4k"]["k2_ms"]},
+    ]
+    report["kernels"] = kernels
+    log("report: " + json.dumps(report))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    try:
+        main()
+    except Exception:  # report any phase's failure and exit non-zero
+        traceback.print_exc()
+        sys.exit(1)
