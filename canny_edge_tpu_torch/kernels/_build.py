@@ -6,8 +6,9 @@ keeps nvcc from contracting a multiply and an add into an FMA, which would
 change the blur's float32 rounding; ``--use_fast_math`` is never passed.
 The libraries go to ``build/`` beside this file (listed in ``.gitignore``),
 named by a hash of the source and the flags, so an edited source is rebuilt
-and a stale library is never loaded.  :func:`build_all` compiles every
-source in parallel, one ``nvcc`` each.
+and a stale library is never loaded; the hash also covers the shared
+headers (``csrc/*.cuh``).  :func:`build_all` compiles every source in
+parallel, one ``nvcc`` each.
 """
 
 from __future__ import annotations
@@ -36,6 +37,21 @@ SIGNATURES = {
     "hysteresis_packed": {
         "canny_hysteresis_packed": [_P, _P, _P, _I, _I, _I, _P, _P],
     },
+    "hysteresis_dilate": {
+        "canny_dilate_smem_bytes": [_I, _I],
+        "canny_dilate_smem_limit": [],
+        "canny_dilate_pack": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
+        "canny_dilate_sweep": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+        "canny_dilate_unpack": [_P, _I, _I, _P, _P],
+    },
+    "hysteresis_banded": {
+        "canny_banded_smem_bytes": [_I, _I],
+        "canny_banded_smem_limit": [],
+        "canny_banded_max_width": [],
+        "canny_banded_pack": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
+        "canny_banded_sweep": [_P, _P, _P, _I, _I, _I, _P, _P],
+        "canny_banded_unpack": [_P, _I, _I, _P, _P],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -52,7 +68,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 

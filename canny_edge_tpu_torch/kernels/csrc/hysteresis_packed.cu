@@ -33,12 +33,16 @@
 // snapshot.
 
 #include <cooperative_groups.h>
-#include <cstdint>
-#include <cuda_runtime.h>
+
+#include "masks.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+using masks::hrow;
+using masks::run_fill;
+using masks::run_fill_down;
 
 constexpr int TH = 32;             // tile rows
 constexpr int TW = 8;              // tile words
@@ -61,21 +65,6 @@ __device__ __forceinline__ uint32_t strict_fix(uint32_t d, uint32_t p0,
                            | ((p1 >> 2) & 1u);
   const uint32_t val = ((p0 >> 1) & 1u) | (((w0 >> 1) & 1u) & allowed);
   return (d & ~2u) | (val << 1);
-}
-
-__device__ __forceinline__ uint32_t hrow(uint32_t l, uint32_t m, uint32_t r) {
-  return m | (m << 1) | (l >> 31) | (m >> 1) | (r << 31);
-}
-
-// propagate seeds x along runs of w toward higher bits, with carry in/out:
-// carry-add generates at seeds and propagates through weak bits
-__device__ __forceinline__ uint32_t run_fill(uint32_t w, uint32_t x,
-                                             uint32_t& carry) {
-  const uint32_t a = w | x;
-  const uint64_t sum = (uint64_t)a + x + carry;
-  const uint32_t cvec = (uint32_t)sum ^ a ^ x;
-  carry = (uint32_t)(sum >> 32);
-  return x | (w & cvec);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -144,7 +133,7 @@ flood_kernel(const uint32_t* __restrict__ weak, const uint32_t* strong,
           for (int x = 0; x < nw; ++x) er[x] = run_fill(wr[x], er[x], carry);
           carry = 0;
           for (int x = nw - 1; x >= 0; --x)
-            er[x] = __brev(run_fill(__brev(wr[x]), __brev(er[x]), carry));
+            er[x] = run_fill_down(wr[x], er[x], carry);
         }
         __syncthreads();
         // flood along each tile word column, down then up

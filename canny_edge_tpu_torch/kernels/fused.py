@@ -1,0 +1,64 @@
+"""The ``pallas`` backend's pipeline: K1 in NMS mode, then one of four
+hysteresis engines (``canny_edge_tpu/kernels/fused.py:canny_fused``).
+
+On a CUDA tensor every stage is a hand-written kernel except the
+``"packed-xla"`` flood, which is plain PyTorch as it was XLA on the TPU; on
+a CPU tensor every wrapper runs its plain version.  JAX's ``interpret=``
+has no counterpart: the tensor's device takes its role.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.packed import hysteresis_packed
+from .frontend import frontend
+from .hysteresis import hysteresis_dilate
+from .hysteresis_packed import hysteresis_packed_nm
+from .hysteresis_v2 import hysteresis_banded
+
+IMPLS = ("packed", "packed-xla", "banded", "dilate")
+
+
+def _taps(kernel_vals, device) -> torch.Tensor:
+    if isinstance(kernel_vals, torch.Tensor):
+        return kernel_vals.to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.asarray(kernel_vals, np.float32).copy()).to(device)
+
+
+def canny_fused(img, min_val, max_val, *, kernel_vals, hysteresis_steps=4,
+                tile=None, hysteresis_impl: str = "packed",
+                strict: bool = False) -> torch.Tensor:
+    """uint8 (H, W) or (B, H, W) -> int16 {0, 255}, on ``img``'s device.
+
+    ``kernel_vals``: the float32 Gaussian taps (a sequence, an array or a
+    tensor).  ``hysteresis_steps`` is accepted and unused, as in JAX.
+    ``tile``: the ``"dilate"`` engine's tile (the TPU front-end tile has no
+    counterpart in K1 and changes no result).  ``hysteresis_impl``:
+    "packed" (K2, the default), "packed-xla" (the plain packed flood),
+    "banded" (K4) or "dilate" (K3).  ``strict``: strict-reference
+    hysteresis, packed engines only.  A batch runs frame by frame.
+    """
+    del hysteresis_steps
+    if hysteresis_impl not in IMPLS:
+        raise ValueError(f"unknown hysteresis_impl {hysteresis_impl!r}; "
+                         f"expected one of {IMPLS}")
+    if strict and hysteresis_impl not in ("packed", "packed-xla"):
+        raise ValueError("strict mode: use hysteresis_impl packed/packed-xla")
+    img = torch.as_tensor(img)
+    taps = _taps(kernel_vals, img.device)
+    if img.dim() == 3:
+        return torch.stack([
+            canny_fused(f, min_val, max_val, kernel_vals=taps, tile=tile,
+                        hysteresis_impl=hysteresis_impl, strict=strict)
+            for f in img])
+    nm = frontend(img, taps)
+    if hysteresis_impl == "packed":
+        return hysteresis_packed_nm(nm, min_val, max_val, strict=strict)
+    if hysteresis_impl == "packed-xla":
+        return hysteresis_packed(nm, min_val, max_val, strict=strict)
+    if hysteresis_impl == "banded":
+        return hysteresis_banded(nm, min_val, max_val)
+    return hysteresis_dilate(nm, min_val, max_val,
+                             **({} if tile is None else {"tile": tile}))

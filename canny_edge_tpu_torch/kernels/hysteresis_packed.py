@@ -3,14 +3,15 @@
 Packed uint32 weak/strong masks ``(H, ceil(W/32))`` -> the packed edge mask.
 A CPU tensor goes to the plain version
 (:func:`..ops.packed.hysteresis_packed_masks`); a CUDA tensor goes to the
-kernel, for every shape from 1x1 up, or raises.
+kernel, for every shape from 1x1 up, or raises.  :func:`hysteresis_packed_nm`
+is the NMS-map entry (``hysteresis_impl="packed"``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.packed import cdiv, hysteresis_packed_masks
+from ..ops.packed import cdiv, hysteresis_packed_masks, pack_mask, unpack_edges
 from . import _build
 
 # kernel launches made by this wrapper (the main path's proof of use)
@@ -54,3 +55,21 @@ def hysteresis_packed(weak: torch.Tensor, strong: torch.Tensor, height: int,
     _build.check(err, "canny_hysteresis_packed launch")
     launches += 1
     return (out, ctl[3]) if return_steps else out
+
+
+def hysteresis_packed_nm(nm: torch.Tensor, min_val: int, max_val: int, *,
+                         strict: bool = False) -> torch.Tensor:
+    """int NMS magnitude (H, W) or (B, H, W) -> int16 {0, 255} through K2.
+
+    The counterpart of ``canny_edge_tpu/kernels/hysteresis_packed.py:
+    hysteresis_packed_pallas``: the thresholds and the packing are plain
+    PyTorch glue (XLA there), the flood is the kernel, frame by frame.
+    """
+    h, w = nm.shape[-2], nm.shape[-1]
+    weak, strong = pack_mask(nm >= min_val), pack_mask(nm >= max_val)
+    if nm.dim() == 3:
+        edges = torch.stack([hysteresis_packed(a, b, h, w, strict=strict)
+                             for a, b in zip(weak, strong)])
+    else:
+        edges = hysteresis_packed(weak, strong, h, w, strict=strict)
+    return unpack_edges(edges, w)

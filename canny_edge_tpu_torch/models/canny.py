@@ -1,10 +1,13 @@
-"""Single-device Canny model on PyTorch: the ``fused`` path of ``CannyTPU``.
+"""Single-device Canny model on PyTorch: ``CannyTPU``'s three backends.
 
-Pipeline per frame: K1 (front end with the threshold compares and the
-32-to-1 packing) -> K2 (packed hysteresis flood) -> unpack to int16
-{0, 255}.  The ``packed`` entry points stop before the unpack.  On a CUDA
-device both stages are the hand-written kernels; with ``device="cpu"`` the
-same wrappers run their plain PyTorch versions.
+``backend="fused"`` (default): K1 (front end with the threshold compares and
+the 32-to-1 packing) -> K2 (packed hysteresis flood) -> unpack to int16
+{0, 255}.  ``"pallas"``: :func:`..kernels.fused.canny_fused` (K1 in NMS
+mode, then K2 through its NMS-map entry).  ``"xla"``: the plain front end
+and the plain packed flood, no kernel.  The ``packed`` entry points run the
+fused engines whatever the backend, as in JAX.  On a CUDA device the stages
+are the hand-written kernels; with ``device="cpu"`` the same wrappers run
+their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -13,11 +16,15 @@ import numpy as np
 import torch
 
 from ..kernels.frontend import frontend
+from ..kernels.fused import canny_fused
 from ..kernels.hysteresis_packed import hysteresis_packed
 from ..ops.gaussian import gaussian_kernel
+from ..ops.packed import hysteresis_packed as hysteresis_packed_plain
 from ..ops.packed import unpack_edges
+from ..ops.window import frontend_nm
 
 MODES = ("component", "strict-reference")
+BACKENDS = ("fused", "pallas", "xla")
 
 
 class CannyTorch:
@@ -32,27 +39,32 @@ class CannyTorch:
     ``hysteresis_mode``: "component" (8-connected rule) or
     "strict-reference" (the reference BFS's missing (1,0)->(0,1) edge).
     ``device``: "cuda" (default) or "cpu" for the plain PyTorch versions.
-    Inputs may be NumPy arrays or tensors; outputs are tensors on
-    ``device``.
+    ``backend``: "fused" (default), "pallas" or "xla", as in ``CannyTPU``;
+    all three give the same edges.  Inputs may be NumPy arrays or tensors;
+    outputs are tensors on ``device``.
     """
 
     def __init__(self, sigma: float = 1.0, hysteresis_mode: str = "component",
-                 device="cuda"):
+                 device="cuda", backend: str = "fused"):
         self.sigma = sigma
-        self._setup(gaussian_kernel(sigma), hysteresis_mode, device)
+        self._setup(gaussian_kernel(sigma), hysteresis_mode, device, backend)
 
     @classmethod
     def from_numpy_params(cls, kernel: np.ndarray, *,
-                          hysteresis_mode: str = "component", device="cuda"):
+                          hysteresis_mode: str = "component", device="cuda",
+                          backend: str = "fused"):
         """A model with the given float32 Gaussian taps (e.g. ``CannyTPU.kernel``)."""
         model = cls.__new__(cls)
         model.sigma = None
-        model._setup(kernel, hysteresis_mode, device)
+        model._setup(kernel, hysteresis_mode, device, backend)
         return model
 
-    def _setup(self, kernel, hysteresis_mode, device):
+    def _setup(self, kernel, hysteresis_mode, device, backend):
         if hysteresis_mode not in MODES:
             raise ValueError(f"unknown hysteresis mode: {hysteresis_mode!r}")
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; expected one of "
+                             f"{BACKENDS}")
         kernel = np.asarray(kernel, np.float32)
         if kernel.ndim != 1 or kernel.shape[0] % 2 != 1:
             raise ValueError("kernel must be 1-D with an odd number of taps")
@@ -61,6 +73,7 @@ class CannyTorch:
             raise RuntimeError("CUDA is not available; pass device='cpu' to "
                                "run the plain PyTorch versions")
         self.hysteresis_mode = hysteresis_mode
+        self.backend = backend
         self.kernel = kernel
         self.device = device
         self.taps = torch.from_numpy(kernel.copy()).to(device)
@@ -69,12 +82,25 @@ class CannyTorch:
     def window(self) -> int:
         return int(self.kernel.shape[0])
 
+    @property
+    def strict(self) -> bool:
+        return self.hysteresis_mode == "strict-reference"
+
     def _frame_packed(self, img, min_val, max_val):
         h, w = img.shape
         weak, strong = frontend(img, self.taps, (min_val, max_val))
-        return hysteresis_packed(
-            weak, strong, h, w,
-            strict=self.hysteresis_mode == "strict-reference")
+        return hysteresis_packed(weak, strong, h, w, strict=self.strict)
+
+    def _frame(self, img, min_val, max_val):
+        """One uint8 (H, W) frame -> int16 {0, 255} through the backend."""
+        if self.backend == "fused":
+            return unpack_edges(self._frame_packed(img, min_val, max_val),
+                                img.shape[-1])
+        if self.backend == "pallas":
+            return canny_fused(img, min_val, max_val, kernel_vals=self.taps,
+                               strict=self.strict)
+        return hysteresis_packed_plain(frontend_nm(img, self.kernel), min_val,
+                                       max_val, strict=self.strict)
 
     def _input(self, img):
         if isinstance(img, np.ndarray):
@@ -83,9 +109,7 @@ class CannyTorch:
 
     def __call__(self, img, min_val: int, max_val: int):
         self._validate(img, min_val, max_val)
-        img = self._input(img)
-        return unpack_edges(self._frame_packed(img, min_val, max_val),
-                            img.shape[-1])
+        return self._frame(self._input(img), min_val, max_val)
 
     def packed(self, img, min_val: int, max_val: int):
         """Edge bitmask (H, ceil(W/32)) uint32 (bit b of word j = column 32j+b)."""
@@ -95,9 +119,7 @@ class CannyTorch:
     def batch(self, imgs, min_val: int, max_val: int):
         """(B, H, W) -> (B, H, W) int16 {0, 255}, one frame at a time."""
         imgs = self._batch_input(imgs, min_val, max_val)
-        return unpack_edges(torch.stack(
-            [self._frame_packed(f, min_val, max_val) for f in imgs]),
-            imgs.shape[-1])
+        return torch.stack([self._frame(f, min_val, max_val) for f in imgs])
 
     def batch_packed(self, imgs, min_val: int, max_val: int):
         """(B, H, W) -> (B, H, ceil(W/32)) uint32 edge bitmasks."""

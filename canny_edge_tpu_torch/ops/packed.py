@@ -216,3 +216,19 @@ def hysteresis_packed_masks(weak_p, strong_p, height: int, width: int,
         if torch.equal(new, e):
             return to_words(e), rounds
         e = new
+
+
+def hysteresis_packed(nm: torch.Tensor, min_val: int, max_val: int, *,
+                      strict: bool = False) -> torch.Tensor:
+    """int NMS magnitude (..., H, W) -> int16 {0, 255}, on ``nm``'s device.
+
+    The ``"packed-xla"`` engine and the ``xla`` backend's flood
+    (``canny_edge_tpu/ops/packed.py:hysteresis_packed``): threshold, pack,
+    the plain packed flood, unpack.  ``nm`` is compared signed (NOEDGE is 0,
+    so ``min_val=0`` makes every pixel weak).
+    """
+    h, w = nm.shape[-2], nm.shape[-1]
+    edges, _ = hysteresis_packed_masks(pack_mask(nm >= min_val),
+                                       pack_mask(nm >= max_val), h, w,
+                                       strict=strict)
+    return unpack_edges(edges, w)

@@ -1,6 +1,8 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: builds, checks and times
-the kernels of the main path (``CannyTorch``: K1 front end -> K2 packed
-flood -> unpack).
+the kernels of both ported paths: ``CannyTorch``'s ``fused`` backend (K1
+front end -> K2 packed flood -> unpack) and the ``pallas`` backend
+(``canny_fused``: K1 in NMS mode -> K2, K3 tiled dilation or K4 banded
+raster scan).
 
     python3 chip_smoke.py
 
@@ -17,7 +19,18 @@ Phases (any failure exits non-zero and prints no result):
      against the plain pipeline on the card; plus the card against the CPU
      on a small frame;
   6. times with CUDA events (median over many launches) of the kernels,
-     their plain versions and the whole frame.
+     their plain versions and the whole frame;
+  7. K3 and K4 against their plain versions, bit-equal with equal sweep
+     counts (K1's NMS maps at 1080p and 4K at 30/90 and 0/40, random maps,
+     257x333, 64x33, 1x1000, 40x1; two tiles and two band heights), and
+     against K2 on the 1080p serpentine and a 40x40 spiral;
+  8. the ``pallas`` path at 1080p and 4K (sigma 1.4, 30/90): ``canny_fused``
+     with each hysteresis engine and ``CannyTorch(backend="pallas")`` /
+     ``"xla"``, with every launch count set to 0 just before and read just
+     after, then held against the plain pipeline on the card and against
+     the CPU on a small frame;
+  9. times of K3 and K4 (sweeps, plain versions) and of the frame for each
+     engine and backend.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Every measured number also goes to
 standard error as one ``report:`` JSON line.
@@ -78,6 +91,32 @@ def snake_nm(h, w):
     return nm
 
 
+def spiral_nm(n=40):
+    """Inward spiral, one connected chain, strong seed at its centre end."""
+    nm = np.zeros((n, n), np.int32)
+    r0, c0, r1, c1 = 0, 0, n - 1, n - 1
+    pts = []
+    while r0 <= r1 and c0 <= c1:
+        pts += [(r0, c) for c in range(c0, c1 + 1)]
+        pts += [(r, c1) for r in range(r0 + 1, r1 + 1)]
+        if r0 < r1:
+            pts += [(r1, c) for c in range(c1 - 1, c0 - 1, -1)]
+        if c0 < c1:
+            pts += [(r, c0) for r in range(r1 - 1, r0 + 1, -1)]
+            pts.append((r0 + 2, c0 + 1))
+        r0, c0, r1, c1 = r0 + 2, c0 + 2, r1 - 2, c1 - 2
+    for p in pts:
+        nm[p] = 30
+    nm[pts[-1]] = 200
+    return nm
+
+
+def random_nm(rng, h, w):
+    nm = rng.integers(0, 100, (h, w)).astype(np.int16)
+    nm[rng.random((h, w)) < 0.45] = 0
+    return nm
+
+
 def main():
     import torch
 
@@ -85,7 +124,12 @@ def main():
     from canny_edge_tpu_torch import CannyTorch
     from canny_edge_tpu_torch.kernels import _build
     from canny_edge_tpu_torch.kernels import frontend as kfe
+    from canny_edge_tpu_torch.kernels import hysteresis as k3
     from canny_edge_tpu_torch.kernels import hysteresis_packed as khp
+    from canny_edge_tpu_torch.kernels import hysteresis_v2 as k4
+    from canny_edge_tpu_torch.kernels.fused import IMPLS, canny_fused
+    from canny_edge_tpu_torch.ops import banded as Bd
+    from canny_edge_tpu_torch.ops import dilate as Dl
     from canny_edge_tpu_torch.ops import packed as P
     from canny_edge_tpu_torch.ops import window as Wn
     from canny_edge_tpu_torch.ops.gaussian import gaussian_kernel
@@ -308,6 +352,200 @@ def main():
     log(f"times snake: {times['snake_1080p']}")
     report["times"] = times
 
+    # ---- 7. K3 and K4 against their plain versions ----
+    t0 = time.perf_counter()
+    nm_cases = {}
+    for name, (h, w) in SIZES.items():
+        nm = kfe.frontend(torch.from_numpy(make_image(h, w)).to(dev), taps14)
+        nm_cases[f"k1_nm_{name}"] = (nm, [(MN, MX), (0, 40)])
+    nm_cases["random_1080p"] = (random_nm(rng, 1080, 1920), [(MN, MX)])
+    for h, w in ((257, 333), (64, 33), (1, 1000), (40, 1)):
+        nm_cases[f"random_{h}x{w}"] = (random_nm(rng, h, w), [(MN, MX), (0, 40)])
+    alt_tile, alt_band = (32, 100), 16
+    engine_sweeps = {}
+    engine_err = {"dilate": 0, "banded": 0}
+    for name, (nm, pairs) in nm_cases.items():
+        nm = torch.as_tensor(nm).to(dev)
+        full = name.startswith("k1_nm_4k")   # the plain mirrors are slow there
+        for mn, mx in pairs:
+            runs = [("dilate", {"tile": t}) for t in
+                    ([Dl.DEFAULT_TILE] if full else [Dl.DEFAULT_TILE, alt_tile])]
+            runs += [("banded", {"band_h": b}) for b in
+                     ([None] if full else [None, alt_band])]
+            for engine, kw in runs:
+                kern, plain = ((k3.hysteresis_dilate, Dl.hysteresis_dilate)
+                               if engine == "dilate" else
+                               (k4.hysteresis_banded, Bd.hysteresis_banded))
+                out, sweeps = kern(nm, mn, mx, return_sweeps=True, **kw)
+                sync()
+                ref, ref_sweeps = plain(nm, mn, mx, return_sweeps=True, **kw)
+                engine_err[engine] = max(engine_err[engine], int(
+                    (out.to(torch.int32) - ref).abs().max()))
+                check(torch.equal(out, ref) and sweeps == ref_sweeps,
+                      f"{engine} differs: {name} {mn}/{mx} {kw} "
+                      f"(sweeps {sweeps} vs {ref_sweeps})")
+                engine_sweeps[f"{engine}/{name}/{mn}-{mx}/{kw}"] = sweeps
+    chains = {"snake_1080p": torch.from_numpy(snake_nm(1080, 1920)).to(dev),
+              "spiral_40": torch.from_numpy(spiral_nm()).to(dev)}
+    for name, nm in chains.items():
+        h, w = nm.shape
+        ref = P.unpack_edges(khp.hysteresis_packed(
+            P.pack_mask(nm >= 10), P.pack_mask(nm >= 100), h, w), w)
+        check(int((ref == 255).sum()) == int((nm >= 10).sum()),
+              f"{name}: K2 did not light the whole chain")
+        for engine, kern, kws in (
+                ("dilate", k3.hysteresis_dilate, [{}, {"tile": alt_tile}]),
+                ("banded", k4.hysteresis_banded, [{}, {"band_h": alt_band}])):
+            for kw in kws:
+                out, sweeps = kern(nm, 10, 100, return_sweeps=True, **kw)
+                sync()
+                check(torch.equal(out, ref), f"{engine} differs from K2: "
+                      f"{name} {kw}")
+                engine_sweeps[f"{engine}/{name}/{kw}"] = sweeps
+    report["k3_k4_check"] = {"sweeps": engine_sweeps,
+                             "s": time.perf_counter() - t0}
+    log(f"K3/K4 bit-equal to their plain versions and K2: {engine_sweeps}")
+
+    # ---- 8. the pallas path: launch counts from 0 ----
+    t0 = time.perf_counter()
+    mods = {"frontend": kfe, "hysteresis_packed": khp,
+            "hysteresis_dilate": k3, "hysteresis_banded": k4}
+    for m in mods.values():
+        m.launches = 0
+
+    def launch_counts():
+        return {k: m.launches for k, m in mods.items()}
+
+    pallas_models = {b: CannyTorch(SIGMA, backend=b) for b in ("pallas", "xla")}
+    strict_pallas = CannyTorch(SIGMA, hysteresis_mode="strict-reference",
+                               backend="pallas")
+    imgs = {name: torch.from_numpy(fr[0]).to(dev) for name, fr in frames.items()}
+    pouts, per_run = {}, {}
+    for run in [*IMPLS, "model/pallas", "model/xla", "model/pallas-strict"]:
+        before = launch_counts()
+        for name, img in imgs.items():
+            if run in IMPLS:
+                pouts[run, name] = canny_fused(img, MN, MX, kernel_vals=taps14,
+                                               hysteresis_impl=run)
+            elif run == "model/pallas-strict":
+                pouts[run, name] = strict_pallas(img, MN, MX)
+            else:
+                model = pallas_models[run.split("/")[1]]
+                pouts[run, name] = model(img, MN, MX)
+                pouts[run + "/batch", name] = model.batch(np.stack(
+                    frames[name][:2]), MN, MX)
+        per_run[run] = {k: v - before[k] for k, v in launch_counts().items()}
+    sync()
+    pallas_counts = launch_counts()
+    log(f"pallas path launches: {pallas_counts} by run {per_run}")
+    uses = {"packed": {"frontend", "hysteresis_packed"},
+            "packed-xla": {"frontend"},
+            "banded": {"frontend", "hysteresis_banded"},
+            "dilate": {"frontend", "hysteresis_dilate"},
+            "model/pallas": {"frontend", "hysteresis_packed"},
+            "model/pallas-strict": {"frontend", "hysteresis_packed"},
+            "model/xla": set()}
+    for run, c in per_run.items():
+        check(all((c[k] > 0) == (k in uses[run]) for k in c),
+              f"{run} launched {c}, expected exactly {sorted(uses[run])}")
+    check(all(v > 0 for v in pallas_counts.values()),
+          f"a kernel of the pallas path was not launched: {pallas_counts}")
+
+    def plain_edges(img, strict=False):
+        return P.hysteresis_packed(Wn.frontend_nm(img, gaussian_kernel(SIGMA)),
+                                   MN, MX, strict=strict)
+
+    for name, img in imgs.items():
+        ref = plain_edges(img)
+        ref_strict = plain_edges(img, strict=True)
+        for (run, nm_), got in pouts.items():
+            if nm_ != name:
+                continue
+            want = ref_strict if run == "model/pallas-strict" else ref
+            if run.endswith("/batch"):
+                want = torch.stack([plain_edges(torch.from_numpy(f).to(dev))
+                                    for f in frames[name][:2]])
+            check(got.dtype == torch.int16 and torch.equal(got, want),
+                  f"pallas path differs from the plain pipeline: {run} {name}")
+    for b, model in pallas_models.items():
+        cpu = CannyTorch(SIGMA, device="cpu", backend=b)
+        check(torch.equal(model(small, MN, MX).cpu(), cpu(small, MN, MX)),
+              f"card and CPU differ on 256x256: backend {b}")
+    cpu_ref = CannyTorch(SIGMA, device="cpu")(small, MN, MX)
+    for impl in IMPLS:
+        got = canny_fused(torch.from_numpy(small).to(dev), MN, MX,
+                          kernel_vals=taps14, hysteresis_impl=impl)
+        check(torch.equal(got.cpu(), cpu_ref),
+              f"card and CPU differ on 256x256: {impl}")
+    report["pallas_path"] = {"launches": pallas_counts, "by_run": per_run,
+                             "s": time.perf_counter() - t0}
+    log("pallas path bit-equal to the plain pipeline")
+
+    # ---- 9. times of K3, K4 and the pallas path ----
+    t0 = time.perf_counter()
+
+    def device_ms(fn, reps=5):
+        """Device time per call by kernel name (torch.profiler); {} where
+        the profiler records no device time."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync()
+        by = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0) or 0
+            if us > 0 and "CUDA" in str(getattr(e, "device_type", "")):
+                by[e.key[:48]] = us / 1e3 / reps
+        return by
+
+    for name, (h, w) in SIZES.items():
+        img = imgs[name]
+        nm = kfe.frontend(img, taps14)
+        t = times[name]
+        _, t["k3_sweeps"] = k3.hysteresis_dilate(nm, MN, MX, return_sweeps=True)
+        _, t["k4_sweeps"] = k4.hysteresis_banded(nm, MN, MX, return_sweeps=True)
+        t["k3_ms"] = time_ms(lambda: k3.hysteresis_dilate(nm, MN, MX), 20)
+        t["k4_ms"] = time_ms(lambda: k4.hysteresis_banded(nm, MN, MX), 20)
+        for k, fn in (("k3", k3.hysteresis_dilate), ("k4", k4.hysteresis_banded)):
+            by = device_ms(lambda: fn(nm, MN, MX))
+            t[f"{k}_device_ms"] = sum(by.values()) if by else "not measured"
+            t[f"{k}_device_by_kernel"] = by
+        t["k3_plain_ms"] = time_ms(lambda: Dl.hysteresis_dilate(nm, MN, MX), 1, 1)
+        t["k4_plain_ms"] = time_ms(lambda: Bd.hysteresis_banded(nm, MN, MX), 1, 1)
+        for impl in IMPLS:
+            t[f"frame_impl_{impl}_ms"] = time_ms(lambda: canny_fused(
+                img, MN, MX, kernel_vals=taps14, hysteresis_impl=impl), 10, 3)
+        for b, model in pallas_models.items():
+            t[f"frame_model_{b}_ms"] = time_ms(lambda: model(img, MN, MX), 10, 3)
+        # K3 and K4: nm read once (2 B/px), int16 edges written once
+        # (2 B/px); per pixel two compares and one select, per packed word
+        # one dilation and row/column flood (~40 operations)
+        eng_bytes = 4 * h * w
+        eng_ops = 3 * h * w + 40 * h * (-(-w // 32))
+        tb, to = eng_bytes / HBM_BYTES_PER_S * 1e3, eng_ops / F32_OPS_PER_S * 1e3
+        for k in ("k3", "k4"):
+            t[f"{k}_bound_ms"] = max(tb, to)
+            t[f"{k}_bound_by"] = "bytes" if tb >= to else "operations"
+        log(f"times {name}: {t}")
+    sn = chains["snake_1080p"]
+    for k, kern in (("k3", k3.hysteresis_dilate), ("k4", k4.hysteresis_banded)):
+        _, sweeps = kern(sn, 10, 100, return_sweeps=True)
+        times["snake_1080p"][f"{k}_ms"] = time_ms(lambda: kern(sn, 10, 100), 3, 3)
+        times["snake_1080p"][f"{k}_sweeps"] = sweeps
+    log(f"times snake: {times['snake_1080p']}")
+    # a frame whose default band (the whole image below 512 rows) exceeds a
+    # block's shared memory runs with a halved band
+    tall = torch.from_numpy(random_nm(rng, 500, 1920)).to(dev)
+    out = k4.hysteresis_banded(tall, MN, MX)
+    sync()
+    check(torch.equal(out, Bd.hysteresis_banded(tall, MN, MX)),
+          "K4 differs on 500x1920 with the default band")
+    report["times_s"] = time.perf_counter() - t0
+
     t1 = times["1080p"]
     kernels = [
         {"name": "frontend", "route": "cuda",
@@ -327,6 +565,21 @@ def main():
          "library_ms": None, "match": True, "shape": "1080x1920",
          "steps": t1["k2_steps"], "ms_4k": times["4k"]["k2_ms"]},
     ]
+    for k, name, src, line in (
+            ("k3", "hysteresis_dilate", "hysteresis_dilate.cu",
+             "canny_edge_tpu/kernels/hysteresis.py:41"),
+            ("k4", "hysteresis_banded", "hysteresis_banded.cu",
+             "canny_edge_tpu/kernels/hysteresis_v2.py:70")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"canny_edge_tpu_torch/kernels/csrc/{src}",
+            "replaces": line, "launches": pallas_counts[name],
+            "max_abs_err": engine_err[name.split("_")[1]],
+            "ms": t1[f"{k}_ms"], "plain_ms": t1[f"{k}_plain_ms"],
+            "bound_ms": t1[f"{k}_bound_ms"], "bound_by": t1[f"{k}_bound_by"],
+            "library_ms": None, "match": True, "shape": "1080x1920",
+            "sweeps": t1[f"{k}_sweeps"], "ms_4k": times["4k"][f"{k}_ms"],
+            "plain_ms_4k": times["4k"][f"{k}_plain_ms"]})
     report["kernels"] = kernels
     log("report: " + json.dumps(report))
     print(json.dumps({"kernels": kernels}), flush=True)

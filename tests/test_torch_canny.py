@@ -154,7 +154,11 @@ def test_import_loads_no_jax():
     sys.modules (counting only what the import itself loads)."""
     code = ("import sys; before = set(sys.modules); "
             "import canny_edge_tpu_torch, canny_edge_tpu_torch.kernels."
-            "frontend, canny_edge_tpu_torch.kernels.hysteresis_packed; "
+            "frontend, canny_edge_tpu_torch.kernels.hysteresis_packed, "
+            "canny_edge_tpu_torch.kernels.hysteresis, "
+            "canny_edge_tpu_torch.kernels.hysteresis_v2, "
+            "canny_edge_tpu_torch.kernels.fused, canny_edge_tpu_torch.ops."
+            "dilate, canny_edge_tpu_torch.ops.banded; "
             "bad = [m for m in set(sys.modules) - before if m.split('.')[0] "
             "in ('jax', 'jaxlib', 'canny_edge_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
