@@ -13,6 +13,7 @@ parallel, one ``nvcc`` each.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,15 +28,18 @@ BUILD_DIR = Path(__file__).parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
-# C entry points: name -> (argtypes); every entry returns a cudaError_t
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry points: name -> (argtypes); every entry returns an int (a
+# cudaError_t where it launches, else the value it is named for)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
 SIGNATURES = {
     "frontend": {
         "canny_frontend": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
         "canny_frontend_max_window": [],
     },
     "hysteresis_packed": {
-        "canny_hysteresis_packed": [_P, _P, _P, _I, _I, _I, _P, _P],
+        "canny_hysteresis_packed": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I,
+                                    _I, _P, _L, _P],
+        "canny_hysteresis_packed_scratch_words": [_I, _I],
     },
     "hysteresis_dilate": {
         "canny_dilate_smem_bytes": [_I, _I],
@@ -57,7 +61,8 @@ SIGNATURES = {
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
+    """The toolkit's ``nvcc`` (``cuobjdump`` lies beside it)."""
     cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                           "bin", "nvcc"), shutil.which("nvcc")]
     for c in cands:
@@ -67,7 +72,8 @@ def _nvcc() -> str:
                        "(set CUDA_HOME)")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` as it stands now is built."""
     src = b"".join(p.read_bytes() for p in
                    [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
@@ -84,12 +90,12 @@ def build_all(names=tuple(SIGNATURES)) -> dict[str, float]:
     procs = {}
     t0 = time.perf_counter()
     for name in names:
-        dst = _lib_path(name)
+        dst = lib_path(name)
         if dst.exists():
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, dst)
@@ -111,7 +117,7 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
-        path = _lib_path(name)
+        path = lib_path(name)
         if not path.exists():
             build_all((name,))
         lib = ctypes.CDLL(str(path))
@@ -120,6 +126,26 @@ def load(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _loaded[name] = lib
     return lib
+
+
+def device_guard(device):
+    """A context in which ``device`` (a CUDA ``torch.device``) is current, as
+    a launch needs; it costs nothing when the device is current already."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def stream_handle(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device``."""
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None and device.index is not None:
+        return raw(device.index)     # no Stream object: a tenth of the time
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check(err: int, what: str) -> None:

@@ -1,36 +1,62 @@
-// K2: the bit-packed hysteresis flood on Hopper.
+// K2: the bit-packed hysteresis flood on Hopper, with its two ends.
 //
 // Replaces the Pallas kernels _hyst_packed_kernel_t / _hyst_packed_kernel of
 // canny_edge_tpu/kernels/hysteresis_packed.py (one VMEM-resident program that
-// floods the whole image's packed masks to their fixed point).  Plain
-// version: ops/packed.py:hysteresis_packed_masks.
+// floods the whole image's packed masks to their fixed point) and the
+// threshold/pack and unpack passes around them, which on the TPU ran in XLA.
+// Plain versions: ops/packed.py:hysteresis_packed_masks (the fixed point) and
+// ops/packed_tiles.py (this kernel's tile schedule, step for step).
 //
-// The TPU design keeps the whole image on one core.  An H100 block has at
-// most 227 KB of shared memory, less than one 1080p mask (259 KB), so the
-// flood here is one cooperative persistent kernel over 32-row x 8-word tiles
-// (32 x 256 pixels):
+// Bound: the function moves three packed masks (0.78 MB at 1080p), or an
+// int16 NMS map in and an int16 edge map out (8.3 MB, 2.5 us of HBM time); a
+// flood needs a few hundred bit operations a word.  Neither is what it
+// costs: a 1080p mask (259 KB) does not fit one block's shared memory, so
+// the flood is tiles that exchange borders, and its time is the launch, one
+// grid-wide barrier per exchange and the latency of the dependent bit
+// operations inside a tile.  The design keeps all three small.
 //
-//   prologue  e = weak & dilate8(strong)   (with the strict fix), grid sync;
-//   step      every tile loads its words plus a one-word / one-row halo into
-//             shared memory and floods to local convergence: a dilation,
-//             then a carry-add flood along each tile row and a scan along
-//             each tile word column, repeated until nothing changes; changed
-//             words go back to device memory and raise a flag; grid sync;
-//   repeat    until a step in which no tile changed.
+// Design: one cooperative persistent kernel.
+//   pack     (NMS-map input) weak = nm >= lo, strong = nm >= hi, one word a
+//            thread from 16-byte loads, by every thread of the grid (a
+//            ragged or unaligned word value by value); grid sync.
+//   step     a tile is 8 rows x 32 words (8 x 1024 pixels), owned by one
+//            warp and held in registers: lane j keeps word j of every row.
+//            The warp floods its tile to the local fixed point with no
+//            shared memory and no block barrier: a dilation (neighbour words
+//            by warp shuffles, neighbour rows in registers, the fixed halo
+//            of the adjacent tiles read once; every load of a tile is
+//            started before the first use, the two side columns one row a
+//            lane, so a tile waits one memory round trip, not one per row),
+//            a flood along each row (a
+//            carry-add inside each word, the carries between the 32 words
+//            scanned by the same carry-add on the warp's ballots) and a
+//            flood down and up each column of registers, until a dilation
+//            changes nothing (__any_sync).  Changed words go back to device
+//            memory.  Step 0 starts from the strong mask itself, so the
+//            first dilation is the plain flood's prologue
+//            weak & dilate8(strong) and needs no pass of its own.
+//   flags    a tile that changed a word on its border marks the adjacent
+//            tiles dirty for the next step; a step floods only dirty tiles
+//            (all of them in step 0), so a converged tile costs one flag
+//            read and the last step of a call costs no flood at all.  The
+//            flags and the "anything marked" word hold a token (launch
+//            sequence number and step), double buffered, so nothing is
+//            ever cleared.  Grid sync; stop when nothing was marked.
+//   unpack   (int16 output) the converged words, still in L2, become int16
+//            {0, 255} with 16-byte stores (8 pixels a thread; a ragged W
+//            takes a per-pixel path for the same 16-byte chunks).
+// Both ends were also measured as kernels of their own around the flood,
+// and the tile at 16 rows: neither was faster, so neither is kept.
 //
-// The result is the least fixed point above the prologue's mask: the weak
-// pixels 8-connected to a strong one.  Any order of adding weak pixels next
-// to an edge reaches it, so it equals the plain version's rounds bit for bit.
-// Strict mode: pixel (0, 1) may not be promoted from (1, 0); only dilations
-// move diagonally, so only they carry the fix.
-//
-// Bound: the kernel moves ~3 packed masks (0.78 MB at 1080p, 0.23 us of HBM
-// time); its cost is the number of steps (tile crossings along the longest
-// edge chain) times a grid sync and a pass over the tiles, all L2 resident.
-// Reads of words that other blocks write use __ldcg (L2, not the incoherent
-// L1).  Races between a block's writes and a neighbour's halo reads are
-// benign: words only gain bits, and a step that changes nothing saw a stable
-// snapshot.
+// The result is the least fixed point above weak & dilate8(strong): the
+// weak pixels 8-connected to a strong one.  Any order of adding weak pixels
+// next to an edge reaches it, so it equals the plain version's rounds bit
+// for bit; only the number of steps depends on the schedule.  Strict mode:
+// pixel (0, 1) may not be promoted from (1, 0); only dilations move
+// diagonally, so only they carry the fix.  Reads of words that other blocks
+// write use __ldcg (L2, not the incoherent L1).  A tile may or may not see a
+// neighbour's writes of the same step: words only gain bits, and the
+// neighbour marks the tile dirty for the next step either way.
 
 #include <cooperative_groups.h>
 
@@ -44,17 +70,26 @@ using masks::hrow;
 using masks::run_fill;
 using masks::run_fill_down;
 
-constexpr int TH = 32;             // tile rows
-constexpr int TW = 8;              // tile words
-constexpr int THREADS = TH * TW;   // one thread per tile word
+typedef unsigned long long u64;
 
-struct Mask {
-  const uint32_t* p;
-  int H, wd;
-  __device__ uint32_t operator()(int r, int j) const {
-    return (r >= 0 && r < H && j >= 0 && j < wd) ? __ldcg(p + (size_t)r * wd + j)
-                                                 : 0u;
-  }
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int TILE_WORDS = 32;       // one word a lane
+constexpr int R = 8;                 // rows of a tile, in registers
+constexpr uint32_t FULL = 0xffffffffu;
+
+struct Args {
+  uint32_t* weak;      // packed inputs, or the scratch the pack phase fills
+  uint32_t* strong;
+  const void* nm;      // NMS-map input, or null
+  int nm_bytes, lo, hi;
+  uint32_t* edges;     // packed edges: the output, or scratch before out16
+  int16_t* out16;      // int16 {0, 255} output, or null
+  int H, W, strict;
+  u64* flags;          // 2 x ntiles dirty tokens
+  u64* any;            // 2 "anything marked" tokens
+  int* steps;          // the number of steps run
+  u64 token;           // launch sequence number << 32
 };
 
 // the strict-reference value of bit 1 (pixel (0, 1)) of word (0, 0) after a
@@ -67,126 +102,373 @@ __device__ __forceinline__ uint32_t strict_fix(uint32_t d, uint32_t p0,
   return (d & ~2u) | (val << 1);
 }
 
-__global__ void __launch_bounds__(THREADS)
-flood_kernel(const uint32_t* __restrict__ weak, const uint32_t* strong,
-             uint32_t* out, int H, int W, int strict, int* ctl) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ uint32_t e_s[TH + 2][TW + 2];
-  __shared__ uint32_t w_s[TH + 2][TW + 2];
-  const int wd = (W + 31) / 32;
-  const int ntx = (wd + TW - 1) / TW, nty = (H + TH - 1) / TH;
-  const int ntiles = ntx * nty;
-  const int tid = threadIdx.x, ly = tid / TW, lx = tid % TW;
-  strict = strict && H >= 2 && W >= 2;
-  const Mask S{strong, H, wd}, Wk{weak, H, wd}, E{out, H, wd};
+// two int16 values in one 32-bit word -> their two bits of `v >= t`
+__device__ __forceinline__ uint32_t ge2(uint32_t x, int t) {
+  const int a = (int)(x << 16) >> 16, b = (int)x >> 16;   // sign extended
+  return (a >= t ? 1u : 0u) | (b >= t ? 2u : 0u);
+}
 
-  // ---- prologue: out = weak & dilate8(strong), the plain flood's first step
-  const size_t n = (size_t)H * wd;
-  for (size_t i = (size_t)blockIdx.x * THREADS + tid; i < n;
-       i += (size_t)gridDim.x * THREADS) {
-    const int rr = (int)(i / wd), j = (int)(i % wd);
-    uint32_t h = 0;
-    for (int dr = -1; dr <= 1; ++dr)
-      h |= hrow(S(rr + dr, j - 1), S(rr + dr, j), S(rr + dr, j + 1));
-    uint32_t d = Wk(rr, j) & h;
-    if (strict && i == 0) d = strict_fix(d, S(0, 0), S(1, 0), Wk(0, 0));
-    out[i] = d;
+// 16 bytes of NMS values -> their threshold bits, value i at bit `at + i`
+__device__ __forceinline__ void threshold16(const int16_t*, uint4 raw, int at,
+                                            int lo, int hi, uint32_t& bw,
+                                            uint32_t& bs) {
+  bw |= (ge2(raw.x, lo) | (ge2(raw.y, lo) << 2) | (ge2(raw.z, lo) << 4)
+         | (ge2(raw.w, lo) << 6)) << at;
+  bs |= (ge2(raw.x, hi) | (ge2(raw.y, hi) << 2) | (ge2(raw.z, hi) << 4)
+         | (ge2(raw.w, hi) << 6)) << at;
+}
+
+__device__ __forceinline__ void threshold16(const int32_t*, uint4 raw, int at,
+                                            int lo, int hi, uint32_t& bw,
+                                            uint32_t& bs) {
+  const int q[4] = {(int)raw.x, (int)raw.y, (int)raw.z, (int)raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    bw |= (uint32_t)(q[i] >= lo) << (at + i);
+    bs |= (uint32_t)(q[i] >= hi) << (at + i);
   }
-  if (blockIdx.x == 0 && tid == 0) ctl[0] = ctl[1] = ctl[2] = 0;
-  grid.sync();
+}
 
+// weak = nm >= lo, strong = nm >= hi (signed); thread `gtid` of `nthreads`
+// packs words gtid, gtid + nthreads, ...: a whole word whose 32 values start
+// on a 16-byte boundary is read in 16-byte loads, any other value by value
+template <typename T>
+__device__ void pack_phase(const T* __restrict__ nm, int H, int W, int lo,
+                           int hi, uint32_t* weak, uint32_t* strong,
+                           size_t gtid, size_t nthreads) {
+  constexpr int PER = 16 / (int)sizeof(T);      // values in 16 bytes
+  const int wd = (W + 31) / 32;
+  const size_t nwords = (size_t)H * wd;
+  for (size_t word = gtid; word < nwords; word += nthreads) {
+    const size_t r = word / wd;
+    const int c0 = (int)(word % wd) * 32;
+    const T* p = nm + r * W + c0;
+    uint32_t bw = 0u, bs = 0u;
+    if (c0 + 32 <= W && (reinterpret_cast<uintptr_t>(p) & 15u) == 0u) {
+      uint4 raw[32 / PER];
+#pragma unroll
+      for (int q = 0; q < 32 / PER; ++q)
+        raw[q] = __ldg(reinterpret_cast<const uint4*>(p) + q);
+#pragma unroll
+      for (int q = 0; q < 32 / PER; ++q)
+        threshold16(p, raw[q], q * PER, lo, hi, bw, bs);
+    } else {
+#pragma unroll
+      for (int b = 0; b < 32; ++b) {      // no early exit: loads in flight
+        const int x = c0 + b < W ? (int)p[b] : INT_MIN;
+        bw |= (c0 + b < W && x >= lo ? 1u : 0u) << b;
+        bs |= (c0 + b < W && x >= hi ? 1u : 0u) << b;
+      }
+    }
+    weak[word] = bw;
+    strong[word] = bs;
+  }
+}
+
+__device__ __forceinline__ void pack_any(const void* nm, int nm_bytes, int H,
+                                         int W, int lo, int hi, uint32_t* weak,
+                                         uint32_t* strong, size_t gtid,
+                                         size_t nthreads) {
+  if (nm_bytes == 2)
+    pack_phase((const int16_t*)nm, H, W, lo, hi, weak, strong, gtid, nthreads);
+  else
+    pack_phase((const int32_t*)nm, H, W, lo, hi, weak, strong, gtid, nthreads);
+}
+
+// two mask bits -> two int16 {0, 255} in one 32-bit word
+__device__ __forceinline__ uint32_t expand2(uint32_t b) {
+  return ((b & 1u) ? 0x000000ffu : 0u) | ((b & 2u) ? 0x00ff0000u : 0u);
+}
+
+// packed edges -> int16 {0, 255}; thread `gtid` of `nthreads` writes the
+// 16-byte chunks gtid, gtid + nthreads, ... of the flat (H * W) output
+__device__ void unpack_phase(const uint32_t* e, int H, int W, int16_t* out,
+                             size_t gtid, size_t nthreads) {
+  const int wd = (W + 31) / 32;
+  const size_t n = (size_t)H * W, nch = n / 8;
+  uint4* out4 = reinterpret_cast<uint4*>(out);
+  if (W % 8 == 0) {
+    const size_t cpr = W / 8;       // a chunk is one byte of one word
+    for (size_t k = gtid; k < nch; k += nthreads) {
+      const size_t r = k / cpr;
+      const int q = (int)(k % cpr);
+      const uint32_t b = (__ldcg(e + r * wd + (q >> 2)) >> (8 * (q & 3))) & 0xffu;
+      out4[k] = make_uint4(expand2(b), expand2(b >> 2), expand2(b >> 4),
+                           expand2(b >> 6));
+    }
+  } else {                          // a chunk may straddle rows and words
+    for (size_t k = gtid; k < nch; k += nthreads) {
+      size_t r = (8 * k) / W;
+      int c = (int)((8 * k) % W);
+      uint32_t b = 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        b |= ((__ldcg(e + r * wd + (c >> 5)) >> (c & 31)) & 1u) << i;
+        if (++c == W) { c = 0; ++r; }
+      }
+      out4[k] = make_uint4(expand2(b), expand2(b >> 2), expand2(b >> 4),
+                           expand2(b >> 6));
+    }
+  }
+  for (size_t i = 8 * nch + gtid; i < n; i += nthreads) {   // fewer than 8
+    const size_t r = i / W;
+    const int c = (int)(i % W);
+    out[i] = ((__ldcg(e + r * wd + (c >> 5)) >> (c & 31)) & 1u) ? 255 : 0;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1) flood_kernel(Args a) {
+  static_assert(R >= 2, "the strict fix reads rows 0 and 1 of tile 0");
+  static_assert(R + 2 <= 32, "one lane per row of the side columns");
+  cg::grid_group grid = cg::this_grid();
+  const int H = a.H, W = a.W, wd = (W + 31) / 32;
+  const int ntx = (wd + TILE_WORDS - 1) / TILE_WORDS, nty = (H + R - 1) / R;
+  const int ntiles = ntx * nty;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = WARPS * gridDim.x;
+  const bool strict = a.strict && H >= 2 && W >= 2;
+
+  if (a.nm != nullptr) {
+    pack_any(a.nm, a.nm_bytes, H, W, a.lo, a.hi, a.weak, a.strong,
+             (size_t)blockIdx.x * THREADS + threadIdx.x,
+             (size_t)gridDim.x * THREADS);
+    grid.sync();
+  }
+
+  auto LD = [&](const uint32_t* p, int r, int j) -> uint32_t {
+    return (r >= 0 && r < H && j >= 0 && j < wd)
+               ? __ldcg(p + (size_t)r * wd + j) : 0u;
+  };
+  // a row of the tile dilated by one column each way; `extra` carries the
+  // bits that enter from the tiles left and right
+  auto HR = [&](uint32_t x, uint32_t extra) -> uint32_t {
+    uint32_t l = __shfl_up_sync(FULL, x, 1), rr = __shfl_down_sync(FULL, x, 1);
+    if (lane == 0) l = 0u;
+    if (lane == 31) rr = 0u;
+    return hrow(l, x, rr) | extra;
+  };
+
+  const int gwarp = warp * gridDim.x + blockIdx.x;   // tiles spread over blocks
   int step = 0;
   for (;;) {
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      const int r0 = (tile / ntx) * TH, j0 = (tile % ntx) * TW;
-      for (int i = tid; i < (TH + 2) * (TW + 2); i += THREADS) {
-        const int y = i / (TW + 2), x = i % (TW + 2);
-        e_s[y][x] = E(r0 - 1 + y, j0 - 1 + x);
-        w_s[y][x] = Wk(r0 - 1 + y, j0 - 1 + x);
+    const u64 tok = a.token + (u64)step;
+    const u64* fl_cur = a.flags + (size_t)(step & 1) * ntiles;
+    u64* fl_nxt = a.flags + (size_t)((step + 1) & 1) * ntiles;
+    for (int t = gwarp; t < ntiles; t += nwarps) {
+      if (step > 0 && __ldcg(fl_cur + t) != tok) continue;   // not dirty
+      const int ty = t / ntx, tx = t % ntx;
+      const int r0 = ty * R, j = tx * TILE_WORDS + lane;
+      // step 0 floods from the strong mask (own words and halo): its first
+      // dilation is weak & dilate8(strong); later steps read the edges
+      const uint32_t* hp = step == 0 ? a.strong : a.edges;
+      // every load first and none behind a branch, so that all are in
+      // flight together: own words, the rows above and below, and the word
+      // columns left and right of the tile (lane L holds row r0 - 1 + L)
+      uint32_t w[R], e[R], o[R], hx[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        w[r] = LD(a.weak, r0 + r, j);
+        e[r] = LD(hp, r0 + r, j);
       }
-      __syncthreads();
-      const int gr = r0 + ly, gj = j0 + lx;
-      const bool mine = gr < H && gj < wd;
-      const uint32_t orig = e_s[ly + 1][lx + 1];
+      const int j0 = tx * TILE_WORDS;
+      const uint32_t top = LD(hp, r0 - 1, j), bot = LD(hp, r0 + R, j);
+      const uint32_t lcol = lane < R + 2 ? LD(hp, r0 - 1 + lane, j0 - 1) : 0u;
+      const uint32_t rcol = lane < R + 2
+                                ? LD(hp, r0 - 1 + lane, j0 + TILE_WORDS) : 0u;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        o[r] = step == 0 ? (e[r] & w[r]) : e[r];   // what the neighbours assume
+        const uint32_t lw = __shfl_sync(FULL, lcol, r + 1);
+        const uint32_t rw = __shfl_sync(FULL, rcol, r + 1);
+        hx[r] = (lane == 0 ? lw >> 31 : 0u) | (lane == 31 ? rw << 31 : 0u);
+      }
+      // a halo row dilated by one column each way; `at` is its lane in lcol
+      auto halo_row = [&](uint32_t m, int at) -> uint32_t {
+        uint32_t l = __shfl_up_sync(FULL, m, 1), rr = __shfl_down_sync(FULL, m, 1);
+        const uint32_t lc = __shfl_sync(FULL, lcol, at);
+        const uint32_t rc = __shfl_sync(FULL, rcol, at);
+        if (lane == 0) l = lc;
+        if (lane == 31) rr = rc;
+        return hrow(l, m, rr);
+      };
+      const uint32_t htop = halo_row(top, 0), hbot = halo_row(bot, R + 1);
+
       for (;;) {
-        const uint32_t before = e_s[ly + 1][lx + 1];
-        // dilation (Jacobi: all reads before any write)
-        uint32_t d = before;
-        if (mine) {
-          uint32_t h = 0;
-          for (int dy = 0; dy <= 2; ++dy)
-            h |= hrow(e_s[ly + dy][lx], e_s[ly + dy][lx + 1],
-                      e_s[ly + dy][lx + 2]);
-          d |= w_s[ly + 1][lx + 1] & h;
-          if (strict && gr == 0 && gj == 0)
-            d = strict_fix(d, before, e_s[2][1], w_s[1][1]);
+        uint32_t chg = 0u;
+        // dilation (Jacobi: every row term is taken before its row changes)
+        const uint32_t p0 = e[0], p1 = e[1];
+        uint32_t hm = htop, hc = HR(e[0], hx[0]);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          uint32_t hn = hbot;
+          if (r + 1 < R) hn = HR(e[r + 1], hx[r + 1]);
+          uint32_t d = w[r] & (hm | hc | hn);
+          if (r == 0 && strict && t == 0 && lane == 0)
+            d = strict_fix(d, p0, p1, w[0]);
+          chg |= d ^ e[r];
+          e[r] = d;
+          hm = hc;
+          hc = hn;
         }
-        __syncthreads();
-        e_s[ly + 1][lx + 1] = d;
-        __syncthreads();
-        // flood along each tile row, toward higher then lower columns
-        if (tid < TH && r0 + tid < H) {
-          const int nw = min(TW, wd - j0);
-          uint32_t* er = &e_s[tid + 1][1];
-          const uint32_t* wr = &w_s[tid + 1][1];
-          uint32_t carry = 0;
-          for (int x = 0; x < nw; ++x) er[x] = run_fill(wr[x], er[x], carry);
-          carry = 0;
-          for (int x = nw - 1; x >= 0; --x)
-            er[x] = run_fill_down(wr[x], er[x], carry);
+        // a dilation that changes nothing is the fixed-point test: the
+        // floods below only add weak pixels next to an edge, which the
+        // dilation would have added too
+        if (!__any_sync(FULL, chg != 0u)) break;
+        // flood along each row of the tile, both directions
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const uint32_t s = e[r], ww = w[r];
+          uint32_t c = 0u;
+          const uint32_t up = run_fill(ww, s, c);       // seeds toward bit 31
+          const uint32_t gu = __ballot_sync(FULL, c != 0u);   // reaches bit 31
+          c = 0u;
+          const uint32_t dn = run_fill_down(ww, s, c);  // seeds toward bit 0
+          const uint32_t gd = __ballot_sync(FULL, c != 0u);   // reaches bit 0
+          const uint32_t pp = __ballot_sync(FULL, ww == FULL);
+          // bit k of lu: a carry leaves lane k upward; bit 31-k of ld: downward
+          uint32_t z = 0u;
+          const uint32_t lu = run_fill(pp, gu, z);
+          z = 0u;
+          const uint32_t ld = run_fill(__brev(pp), __brev(gd), z);
+          // a carry that enters the word fills its weak run from that end
+          uint32_t n = up | dn;
+          if (lane > 0 && ((lu >> (lane - 1)) & 1u)) n |= ww & (ww ^ (ww + 1u));
+          if (lane < 31 && ((ld >> (30 - lane)) & 1u)) {
+            const uint32_t rv = __brev(ww);
+            n |= __brev(rv & (rv ^ (rv + 1u)));
+          }
+          e[r] = n;
         }
-        __syncthreads();
-        // flood along each tile word column, down then up
-        if (tid < TW && j0 + tid < wd) {
-          const int nr = min(TH, H - r0);
-          uint32_t carry = 0;
-          for (int y = 1; y <= nr; ++y)
-            carry = e_s[y][tid + 1] |= w_s[y][tid + 1] & carry;
-          carry = 0;
-          for (int y = nr; y >= 1; --y)
-            carry = e_s[y][tid + 1] |= w_s[y][tid + 1] & carry;
-        }
-        __syncthreads();
-        if (!__syncthreads_or(e_s[ly + 1][lx + 1] != before)) break;
+        // flood along each column of the tile, down then up
+        uint32_t c = 0u;
+#pragma unroll
+        for (int r = 0; r < R; ++r) c = e[r] |= w[r] & c;
+        c = 0u;
+#pragma unroll
+        for (int r = R - 1; r >= 0; --r) c = e[r] |= w[r] & c;
       }
-      const uint32_t now = e_s[ly + 1][lx + 1];
-      const bool changed = mine && now != orig;
-      if (changed) out[(size_t)gr * wd + gj] = now;
-      if (__syncthreads_or(changed) && tid == 0) atomicOr(&ctl[step % 3], 1);
+
+      uint32_t diff = 0u;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const uint32_t df = e[r] ^ o[r];
+        diff |= df;
+        if (j < wd && r0 + r < H && (step == 0 || df != 0u))
+          a.edges[(size_t)(r0 + r) * wd + j] = e[r];
+      }
+      const uint32_t bt = __ballot_sync(FULL, e[0] != o[0]);
+      const uint32_t bb = __ballot_sync(FULL, e[R - 1] != o[R - 1]);
+      const uint32_t ba = __ballot_sync(FULL, diff != 0u);
+      if (lane == 0) {
+        bool marked = false;
+        auto mark = [&](int y, int x) {
+          if (y >= 0 && y < nty && x >= 0 && x < ntx) {
+            fl_nxt[y * ntx + x] = tok + 1;
+            marked = true;
+          }
+        };
+        if (bt) { mark(ty - 1, tx - 1); mark(ty - 1, tx); mark(ty - 1, tx + 1); }
+        if (bb) { mark(ty + 1, tx - 1); mark(ty + 1, tx); mark(ty + 1, tx + 1); }
+        if (ba & 1u) mark(ty, tx - 1);
+        if (ba >> 31) mark(ty, tx + 1);
+        if (marked) a.any[step & 1] = tok + 1;
+      }
     }
-    if (blockIdx.x == 0 && tid == 0) ctl[(step + 1) % 3] = 0;
     grid.sync();
-    const int any = *(volatile int*)&ctl[step % 3];
+    const u64 nxt = *(volatile u64*)&a.any[step & 1];
     ++step;
-    if (!any) break;
+    if (nxt != tok + 1) break;
   }
-  if (blockIdx.x == 0 && tid == 0) ctl[3] = step;
+  if (blockIdx.x == 0 && threadIdx.x == 0) *a.steps = step;
+  if (a.out16 != nullptr)
+    unpack_phase(a.edges, H, W, a.out16,
+                 (size_t)blockIdx.x * THREADS + threadIdx.x,
+                 (size_t)gridDim.x * THREADS);
+}
+
+int tiles_of(int H, int W) {
+  const int wd = (W + 31) / 32;
+  return ((wd + TILE_WORDS - 1) / TILE_WORDS) * ((H + R - 1) / R);
+}
+
+// co-resident blocks of the flood kernel, queried once per device
+int grid_cap(cudaError_t* err) {
+  static int cap[64];
+  int dev = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err != cudaSuccess) return 0;
+  if (dev < 0 || dev >= 64) { *err = cudaErrorInvalidDevice; return 0; }
+  if (cap[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (*err == cudaSuccess)
+      *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, flood_kernel, THREADS, 0);
+    if (*err != cudaSuccess) return 0;
+    if (per_sm < 1) { *err = cudaErrorLaunchOutOfResources; return 0; }
+    cap[dev] = sms * (per_sm < 2 ? per_sm : 2);
+  }
+  return cap[dev];
 }
 
 }  // namespace
 
 extern "C" {
 
-// weak, strong, out: uint32 (H, ceil(W/32)), row-major, device memory;
-// ctl: int32[4] device scratch, ctl[3] receives the number of flood steps.
-// Launches on `stream` and returns cudaGetLastError().
-int canny_hysteresis_packed(const void* weak, const void* strong, void* out,
-                            int H, int W, int strict, void* ctl, void* stream) {
-  if (H <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flood_kernel,
-                                                      THREADS, 0);
+// u64 words of scratch a call needs: 2 x tiles flags, 2 "any" words, 1 for
+// the step count.  The caller zeroes them once and passes a token (launch
+// sequence number << 32) that it never reuses.
+int canny_hysteresis_packed_scratch_words(int H, int W) {
+  return 2 * tiles_of(H, W) + 3;
+}
+
+// The flood.  Input: nm != null -> an int16 (nm_bytes 2) or int32 (4) NMS map
+// (H, W) with thresholds lo / hi, and weak / strong are (H, ceil(W/32))
+// uint32 scratch the pack fills; nm == null -> weak / strong are the packed
+// inputs.  Output: out16 != null -> int16 {0, 255} (H, W), and edges is
+// (H, ceil(W/32)) uint32 scratch; out16 == null -> edges is the packed
+// output.  The step count lands in the last scratch word (as an int).  Launches on
+// `stream` and returns cudaGetLastError().
+int canny_hysteresis_packed(void* weak, void* strong, const void* nm,
+                            int nm_bytes, int lo, int hi, void* edges,
+                            void* out16, int H, int W, int strict,
+                            void* scratch, unsigned long long token,
+                            void* stream) {
+  if (H <= 0 || W <= 0 || (nm != nullptr && nm_bytes != 2 && nm_bytes != 4))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaSuccess;
+  const int cap = grid_cap(&e);
   if (e != cudaSuccess) return (int)e;
   const int wd = (W + 31) / 32;
-  const long ntiles = (long)((wd + TW - 1) / TW) * ((H + TH - 1) / TH);
-  const int grid = (int)(ntiles < (long)per_sm * sms ? ntiles : (long)per_sm * sms);
-  void* args[] = {(void*)&weak, (void*)&strong, &out, &H, &W, &strict, &ctl};
+  const long long nwords = (long long)H * wd;
+  const int ntiles = tiles_of(H, W);
+  const bool ends = nm != nullptr || out16 != nullptr;
+
+  Args a;
+  a.weak = (uint32_t*)weak;
+  a.strong = (uint32_t*)strong;
+  a.nm = nm;
+  a.nm_bytes = nm_bytes;
+  a.lo = lo;
+  a.hi = hi;
+  a.edges = (uint32_t*)edges;
+  a.out16 = (int16_t*)out16;
+  a.H = H;
+  a.W = W;
+  a.strict = strict;
+  a.flags = (u64*)scratch;
+  a.any = a.flags + 2 * (size_t)ntiles;
+  a.steps = (int*)(a.any + 2);
+  a.token = token;
+  // one warp a tile; with a pack or an unpack to do, also a thread a word
+  long long want = ntiles;
+  if (ends && (nwords + THREADS - 1) / THREADS > want)
+    want = (nwords + THREADS - 1) / THREADS;
+  const int grid = (int)(want < cap ? want : cap);
+  void* args[] = {&a};
   e = cudaLaunchCooperativeKernel((const void*)flood_kernel, dim3(grid),
-                                  dim3(THREADS), args, 0, (cudaStream_t)stream);
+                                  dim3(THREADS), args, 0, st);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -18,8 +18,15 @@ from . import _build
 launches = 0
 
 
+_max_window = None
+
+
 def max_window() -> int:
-    return _build.load("frontend").canny_frontend_max_window()
+    """The largest window the kernel takes (asked of the library once)."""
+    global _max_window
+    if _max_window is None:
+        _max_window = _build.load("frontend").canny_frontend_max_window()
+    return _max_window
 
 
 def frontend(img: torch.Tensor, taps: torch.Tensor, thresholds=None):
@@ -31,38 +38,35 @@ def frontend(img: torch.Tensor, taps: torch.Tensor, thresholds=None):
     if img.dtype != torch.uint8 or img.dim() != 2 or img.numel() == 0:
         raise ValueError(f"expected a non-empty uint8 (H, W) image, got "
                          f"{img.dtype} {tuple(img.shape)}")
-    if taps.dtype != torch.float32 or taps.dim() != 1 or len(taps) % 2 != 1:
+    window = taps.shape[0] if taps.dim() == 1 else 0
+    if taps.dtype != torch.float32 or window % 2 != 1:
         raise ValueError("taps must be a 1-D float32 tensor of odd length")
-    if img.device.type == "cpu":
-        out = frontend_plain(img, taps.cpu().numpy(), thresholds)
-        return out.to(torch.int16) if thresholds is None else out
-    if img.device.type != "cuda" or taps.device != img.device:
-        raise ValueError(f"image on {img.device} and taps on {taps.device}: "
+    dev = img.device
+    if dev.type == "cpu":
+        res = frontend_plain(img, taps.cpu().numpy(), thresholds)
+        return res.to(torch.int16) if thresholds is None else res
+    if dev.type != "cuda" or taps.device != dev:
+        raise ValueError(f"image on {dev} and taps on {taps.device}: "
                          "both must be on the same CUDA device")
-    if len(taps) > max_window():
-        raise ValueError(f"window {len(taps)} exceeds the kernel's "
+    if window > max_window():
+        raise ValueError(f"window {window} exceeds the kernel's "
                          f"maximum of {max_window()}")
     img, taps = img.contiguous(), taps.contiguous()
     h, w = img.shape
-    packed = thresholds is not None
-    mn, mx = (int(thresholds[0]), int(thresholds[1])) if packed else (0, 0)
-    if packed:
-        weak = torch.empty((h, cdiv(w, 32)), dtype=torch.uint32,
-                           device=img.device)
-        strong = torch.empty_like(weak)
-        nm = None
+    if thresholds is None:
+        nm = torch.empty((h, w), dtype=torch.int16, device=dev)
+        args = (0, 0, 0, nm.data_ptr(), None, None)
     else:
-        nm = torch.empty((h, w), dtype=torch.int16, device=img.device)
-        weak = strong = None
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        weak = torch.empty((h, cdiv(w, 32)), dtype=torch.uint32, device=dev)
+        strong = torch.empty_like(weak)
+        # the kernel compares 4 * magnitude with 4 * threshold in an int;
+        # magnitudes lie in [0, 2**13), so a clamped threshold decides alike
+        mn, mx = (min(max(int(t), -1), 1 << 13) for t in thresholds)
+        args = (1, mn, mx, None, weak.data_ptr(), strong.data_ptr())
+    with _build.device_guard(dev):
         err = _build.load("frontend").canny_frontend(
-            img.data_ptr(), h, w, taps.data_ptr(), len(taps), int(packed),
-            mn, mx, ptr(nm), ptr(weak), ptr(strong), stream)
+            img.data_ptr(), h, w, taps.data_ptr(), window, *args,
+            _build.stream_handle(dev))
     _build.check(err, "canny_frontend launch")
     launches += 1
-    return (weak, strong) if packed else nm
+    return nm if thresholds is None else (weak, strong)

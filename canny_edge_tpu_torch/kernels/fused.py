@@ -4,7 +4,8 @@ hysteresis engines (``canny_edge_tpu/kernels/fused.py:canny_fused``).
 On a CUDA tensor every stage is a hand-written kernel except the
 ``"packed-xla"`` flood, which is plain PyTorch as it was XLA on the TPU; on
 a CPU tensor every wrapper runs its plain version.  JAX's ``interpret=``
-has no counterpart: the tensor's device takes its role.
+has no counterpart: the tensor's device takes its role.  A tensor stays
+where it lies; a NumPy frame goes to ``device``, the card by default.
 """
 
 from __future__ import annotations
@@ -21,6 +22,23 @@ from .hysteresis_v2 import hysteresis_banded
 IMPLS = ("packed", "packed-xla", "banded", "dilate")
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; the card must exist to be named."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                           "run the plain PyTorch versions")
+    return device
+
+
+def to_device(img, device) -> torch.Tensor:
+    """A tensor as it is; anything else (a NumPy frame) onto ``device``."""
+    if isinstance(img, torch.Tensor):
+        return img
+    frame = torch.from_numpy(np.ascontiguousarray(img))
+    return frame.to(resolve_device(device))
+
+
 def _taps(kernel_vals, device) -> torch.Tensor:
     if isinstance(kernel_vals, torch.Tensor):
         return kernel_vals.to(device=device, dtype=torch.float32)
@@ -29,8 +47,12 @@ def _taps(kernel_vals, device) -> torch.Tensor:
 
 def canny_fused(img, min_val, max_val, *, kernel_vals, hysteresis_steps=4,
                 tile=None, hysteresis_impl: str = "packed",
-                strict: bool = False) -> torch.Tensor:
+                strict: bool = False, device="cuda") -> torch.Tensor:
     """uint8 (H, W) or (B, H, W) -> int16 {0, 255}, on ``img``'s device.
+
+    ``img``: a tensor, which runs where it lies, or a NumPy array, which is
+    moved to ``device`` (default the card; ``RuntimeError`` when there is
+    none; ``device="cpu"`` runs the plain versions).
 
     ``kernel_vals``: the float32 Gaussian taps (a sequence, an array or a
     tensor).  ``hysteresis_steps`` is accepted and unused, as in JAX.
@@ -46,7 +68,7 @@ def canny_fused(img, min_val, max_val, *, kernel_vals, hysteresis_steps=4,
                          f"expected one of {IMPLS}")
     if strict and hysteresis_impl not in ("packed", "packed-xla"):
         raise ValueError("strict mode: use hysteresis_impl packed/packed-xla")
-    img = torch.as_tensor(img)
+    img = to_device(img, device)
     taps = _taps(kernel_vals, img.device)
     if img.dim() == 3:
         return torch.stack([

@@ -1,10 +1,19 @@
 """Wrapper of K2, the packed hysteresis flood (``csrc/hysteresis_packed.cu``).
 
-Packed uint32 weak/strong masks ``(H, ceil(W/32))`` -> the packed edge mask.
-A CPU tensor goes to the plain version
-(:func:`..ops.packed.hysteresis_packed_masks`); a CUDA tensor goes to the
-kernel, for every shape from 1x1 up, or raises.  :func:`hysteresis_packed_nm`
-is the NMS-map entry (``hysteresis_impl="packed"``).
+Two inputs and two outputs, every combination one kernel call on the card:
+
+* :func:`hysteresis_packed`: packed uint32 weak/strong masks
+  ``(H, ceil(W/32))`` -> the packed edge mask, or with ``edges_int16=True``
+  the int16 ``{0, 255}`` edge map ``(H, W)``;
+* :func:`hysteresis_packed_nm`: an int16/int32 NMS map with the two
+  thresholds (``hysteresis_impl="packed"``) -> the int16 edge map, or with
+  ``packed_out=True`` the packed edge mask.
+
+A CPU tensor goes to the plain version, composed of
+:mod:`..ops.packed`'s ``pack_mask``, ``hysteresis_packed_masks`` and
+``unpack_edges``; a CUDA tensor goes to the kernel, for every shape from 1x1
+up, or raises.  On the card the thresholds, the packing and the unpacking
+run in the kernel's own file, never in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -17,18 +26,76 @@ from . import _build
 # kernel launches made by this wrapper (the main path's proof of use)
 launches = 0
 
+_SCRATCH_MAX = 8
+_scratch: dict = {}
+_sequence = 0
+
+
+def _scratch_for(dev, stream, h, w):
+    """Per device, stream and shape: the kernel's flags and step count
+    (zeroed once; a fresh token per launch keeps them valid) and, made when
+    first needed, the packed buffers of the NMS-map and int16 modes."""
+    key = (dev.index, stream, h, w)
+    entry = _scratch.pop(key, None)
+    if entry is None:
+        words = _build.load("hysteresis_packed") \
+            .canny_hysteresis_packed_scratch_words(h, w)
+        entry = {"ctl": torch.zeros(words, dtype=torch.int64, device=dev)}
+        while len(_scratch) >= _SCRATCH_MAX:
+            _scratch.pop(next(iter(_scratch)))
+    _scratch[key] = entry          # most recently used last
+    return entry
+
+
+def _buffer(entry, name, h, w, dev):
+    if name not in entry:
+        entry[name] = torch.empty((h, cdiv(w, 32)), dtype=torch.uint32,
+                                  device=dev)
+    return entry[name]
+
+
+def _launch(dev, h, w, *, weak=None, strong=None, nm=None, lo=0, hi=0,
+            int16_out, strict):
+    """One call of the kernel; returns ``(output, steps)`` with ``steps`` a
+    0-d view of the scratch that the next call on this shape overwrites."""
+    global launches, _sequence
+    lib = _build.load("hysteresis_packed")
+    with _build.device_guard(dev):
+        stream = _build.stream_handle(dev)
+        entry = _scratch_for(dev, stream, h, w)
+        if nm is not None:
+            weak = _buffer(entry, "weak", h, w, dev)
+            strong = _buffer(entry, "strong", h, w, dev)
+        if int16_out:
+            out = torch.empty((h, w), dtype=torch.int16, device=dev)
+            edges = _buffer(entry, "edges", h, w, dev)
+        else:
+            out = edges = torch.empty((h, cdiv(w, 32)), dtype=torch.uint32,
+                                      device=dev)
+        _sequence += 1
+        err = lib.canny_hysteresis_packed(
+            weak.data_ptr(), strong.data_ptr(),
+            None if nm is None else nm.data_ptr(),
+            0 if nm is None else nm.element_size(), int(lo), int(hi),
+            edges.data_ptr(), out.data_ptr() if int16_out else None, h, w,
+            int(bool(strict)), entry["ctl"].data_ptr(), _sequence << 32,
+            stream)
+    _build.check(err, "canny_hysteresis_packed launch")
+    launches += 1
+    return out, entry["ctl"][-1]
+
 
 def hysteresis_packed(weak: torch.Tensor, strong: torch.Tensor, height: int,
                       width: int, *, strict: bool = False,
-                      return_steps: bool = False):
+                      return_steps: bool = False, edges_int16: bool = False):
     """Flood ``weak`` from ``strong`` to the fixed point.
 
     ``strict``: the strict-reference exclusion of the promotion
-    (1,0) -> (0,1).  ``return_steps``: also return the number of flood
-    steps (kernel: grid-wide steps, a 0-d int32 device tensor; CPU: the
-    plain version's rounds).
+    (1,0) -> (0,1).  ``edges_int16``: return the int16 {0, 255} edge map
+    ``(height, width)`` instead of the packed mask.  ``return_steps``: also
+    return the number of flood steps (kernel: grid-wide steps, a 0-d device
+    tensor; CPU: the plain version's rounds).
     """
-    global launches
     shape = (height, cdiv(width, 32))
     for name, t in (("weak", weak), ("strong", strong)):
         if t.dtype != torch.uint32 or tuple(t.shape) != shape:
@@ -39,37 +106,58 @@ def hysteresis_packed(weak: torch.Tensor, strong: torch.Tensor, height: int,
     if weak.device != strong.device:
         raise ValueError("weak and strong lie on different devices")
     if weak.device.type == "cpu":
-        edges, rounds = hysteresis_packed_masks(weak, strong, height, width,
-                                                strict=strict)
-        return (edges, rounds) if return_steps else edges
-    if weak.device.type != "cuda":
+        out, steps = hysteresis_packed_masks(weak, strong, height, width,
+                                             strict=strict)
+        if edges_int16:
+            out = unpack_edges(out, width)
+    elif weak.device.type == "cuda":
+        out, steps = _launch(
+            weak.device, height, width, weak=weak.contiguous(),
+            strong=strong.contiguous(), int16_out=edges_int16, strict=strict)
+        if return_steps:
+            steps = steps.clone()
+    else:
         raise ValueError(f"unsupported device {weak.device}")
-    weak, strong = weak.contiguous(), strong.contiguous()
-    out = torch.empty_like(weak)
-    ctl = torch.empty(4, dtype=torch.int32, device=weak.device)
-    with torch.cuda.device(weak.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _build.load("hysteresis_packed").canny_hysteresis_packed(
-            weak.data_ptr(), strong.data_ptr(), out.data_ptr(), height, width,
-            int(bool(strict)), ctl.data_ptr(), stream)
-    _build.check(err, "canny_hysteresis_packed launch")
-    launches += 1
-    return (out, ctl[3]) if return_steps else out
+    return (out, steps) if return_steps else out
 
 
 def hysteresis_packed_nm(nm: torch.Tensor, min_val: int, max_val: int, *,
-                         strict: bool = False) -> torch.Tensor:
-    """int NMS magnitude (H, W) or (B, H, W) -> int16 {0, 255} through K2.
+                         strict: bool = False, packed_out: bool = False,
+                         return_steps: bool = False):
+    """int16/int32 NMS magnitude (H, W) or (B, H, W) -> int16 {0, 255}.
 
     The counterpart of ``canny_edge_tpu/kernels/hysteresis_packed.py:
-    hysteresis_packed_pallas``: the thresholds and the packing are plain
-    PyTorch glue (XLA there), the flood is the kernel, frame by frame.
+    hysteresis_packed_pallas``.  ``weak = nm >= min_val`` and ``strong = nm
+    >= max_val``, compared signed.  On the card the compares, the packing,
+    the flood and the unpacking are one kernel call a frame; on the CPU they
+    are the plain versions.  ``packed_out``: return the packed uint32 edge
+    mask instead.  ``return_steps`` (single frame only): as in
+    :func:`hysteresis_packed`.
     """
-    h, w = nm.shape[-2], nm.shape[-1]
-    weak, strong = pack_mask(nm >= min_val), pack_mask(nm >= max_val)
     if nm.dim() == 3:
-        edges = torch.stack([hysteresis_packed(a, b, h, w, strict=strict)
-                             for a, b in zip(weak, strong)])
+        if return_steps:
+            raise ValueError("return_steps takes one frame")
+        return torch.stack([
+            hysteresis_packed_nm(f, min_val, max_val, strict=strict,
+                                 packed_out=packed_out)
+            for f in nm])
+    if nm.dim() != 2 or nm.numel() == 0 \
+            or nm.dtype not in (torch.int16, torch.int32):
+        raise ValueError("expected a non-empty int16/int32 (H, W) or (B, H, W) "
+                         f"NMS map, got {nm.dtype} {tuple(nm.shape)}")
+    h, w = nm.shape
+    if nm.device.type == "cpu":
+        out, steps = hysteresis_packed_masks(
+            pack_mask(nm >= min_val), pack_mask(nm >= max_val), h, w,
+            strict=strict)
+        if not packed_out:
+            out = unpack_edges(out, w)
+    elif nm.device.type == "cuda":
+        out, steps = _launch(nm.device, h, w, nm=nm.contiguous(), lo=min_val,
+                             hi=max_val, int16_out=not packed_out,
+                             strict=strict)
+        if return_steps:
+            steps = steps.clone()
     else:
-        edges = hysteresis_packed(weak, strong, h, w, strict=strict)
-    return unpack_edges(edges, w)
+        raise ValueError(f"unsupported device {nm.device}")
+    return (out, steps) if return_steps else out

@@ -1,9 +1,9 @@
 """Single-device Canny model on PyTorch: ``CannyTPU``'s three backends.
 
 ``backend="fused"`` (default): K1 (front end with the threshold compares and
-the 32-to-1 packing) -> K2 (packed hysteresis flood) -> unpack to int16
-{0, 255}.  ``"pallas"``: :func:`..kernels.fused.canny_fused` (K1 in NMS
-mode, then K2 through its NMS-map entry).  ``"xla"``: the plain front end
+the 32-to-1 packing) -> K2 (packed hysteresis flood, which also writes the
+int16 {0, 255} map).  ``"pallas"``: :func:`..kernels.fused.canny_fused` (K1
+in NMS mode, then K2 through its NMS-map entry).  ``"xla"``: the plain front end
 and the plain packed flood, no kernel.  The ``packed`` entry points run the
 fused engines whatever the backend, as in JAX.  On a CUDA device the stages
 are the hand-written kernels; with ``device="cpu"`` the same wrappers run
@@ -16,11 +16,10 @@ import numpy as np
 import torch
 
 from ..kernels.frontend import frontend
-from ..kernels.fused import canny_fused
+from ..kernels.fused import canny_fused, resolve_device
 from ..kernels.hysteresis_packed import hysteresis_packed
 from ..ops.gaussian import gaussian_kernel
 from ..ops.packed import hysteresis_packed as hysteresis_packed_plain
-from ..ops.packed import unpack_edges
 from ..ops.window import frontend_nm
 
 MODES = ("component", "strict-reference")
@@ -68,10 +67,7 @@ class CannyTorch:
         kernel = np.asarray(kernel, np.float32)
         if kernel.ndim != 1 or kernel.shape[0] % 2 != 1:
             raise ValueError("kernel must be 1-D with an odd number of taps")
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("CUDA is not available; pass device='cpu' to "
-                               "run the plain PyTorch versions")
+        device = resolve_device(device)
         self.hysteresis_mode = hysteresis_mode
         self.backend = backend
         self.kernel = kernel
@@ -86,16 +82,16 @@ class CannyTorch:
     def strict(self) -> bool:
         return self.hysteresis_mode == "strict-reference"
 
-    def _frame_packed(self, img, min_val, max_val):
+    def _frame_packed(self, img, min_val, max_val, edges_int16=False):
         h, w = img.shape
         weak, strong = frontend(img, self.taps, (min_val, max_val))
-        return hysteresis_packed(weak, strong, h, w, strict=self.strict)
+        return hysteresis_packed(weak, strong, h, w, strict=self.strict,
+                                 edges_int16=edges_int16)
 
     def _frame(self, img, min_val, max_val):
         """One uint8 (H, W) frame -> int16 {0, 255} through the backend."""
         if self.backend == "fused":
-            return unpack_edges(self._frame_packed(img, min_val, max_val),
-                                img.shape[-1])
+            return self._frame_packed(img, min_val, max_val, edges_int16=True)
         if self.backend == "pallas":
             return canny_fused(img, min_val, max_val, kernel_vals=self.taps,
                                strict=self.strict)

@@ -24,6 +24,10 @@ import torch
 
 _M32 = 0xFFFFFFFF
 
+# calls of the plain pack and unpack below, by name: a kernel path on the
+# card must leave them unchanged
+calls = {"pack_mask": 0, "unpack_mask": 0}
+
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
@@ -50,6 +54,7 @@ def from_words(u: torch.Tensor) -> torch.Tensor:
 
 def pack_mask(mask: torch.Tensor) -> torch.Tensor:
     """bool (..., H, W) -> uint32 (..., H, ceil(W/32)); pad bits are 0."""
+    calls["pack_mask"] += 1
     w = mask.shape[-1]
     wd = cdiv(w, 32)
     m = mask.to(torch.int64)
@@ -62,6 +67,7 @@ def pack_mask(mask: torch.Tensor) -> torch.Tensor:
 
 def unpack_mask(packed: torch.Tensor, w: int) -> torch.Tensor:
     """uint32 (..., H, Wd) -> bool (..., H, w)."""
+    calls["unpack_mask"] += 1
     x = from_words(packed)
     shifts = torch.arange(32, dtype=torch.int64, device=packed.device)
     bits = (x[..., None] >> shifts) & 1

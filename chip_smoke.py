@@ -10,16 +10,22 @@ Phases (any failure exits non-zero and prints no result):
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel from ``canny_edge_tpu_torch/kernels/csrc`` (nvcc);
   3. K1 against its plain PyTorch version on the card, bit-equal, in nm and
-     threshold mode (5 sigmas, 1080p and 4K, odd shapes, 3 threshold pairs);
-  4. K2 against its plain version, bit-equal, component and strict (K1's
-     masks at 1080p and 4K, a serpentine chain, random masks, W=33, H=1);
+     threshold mode (8 sigmas: every window the kernel unrolls, 3 to 15, and
+     a generic one, 19; 1080p and 4K, shapes one off its 64x64 tile, W = 1,
+     31, 33, 333, 1000, 1921; 3 threshold pairs, and one far outside the
+     magnitudes);
+  4. K2 against its plain versions, bit-equal, component and strict, in all
+     four modes (packed masks or NMS map in, packed mask or int16 out): K1's
+     maps at 1080p and 4K, a serpentine chain, a spiral, random maps and
+     masks, ragged shapes; its step count held against the plain mirror of
+     its tile schedule (at most the mirror's);
   5. the full ``CannyTorch`` path at 1080p and 4K (sigma 1.4, 30/90):
      ``__call__``, ``packed`` and ``batch_packed`` (B=4) in both modes, with
-     every launch count set to 0 just before and read just after, then held
-     against the plain pipeline on the card; plus the card against the CPU
-     on a small frame;
-  6. times with CUDA events (median over many launches) of the kernels,
-     their plain versions and the whole frame;
+     every launch count set to 0 just before and read just after and no
+     plain pack or unpack called, then held against the plain pipeline on
+     the card; plus the card against the CPU on a small frame;
+  6. times with CUDA events (median over many launches) of the kernels in
+     each mode, their plain versions and the whole frame;
   7. K3 and K4 against their plain versions, bit-equal with equal sweep
      counts (K1's NMS maps at 1080p and 4K at 30/90 and 0/40, random maps,
      257x333, 64x33, 1x1000, 40x1; two tiles and two band heights), and
@@ -30,10 +36,12 @@ Phases (any failure exits non-zero and prints no result):
      after, then held against the plain pipeline on the card and against
      the CPU on a small frame;
   9. times of K3 and K4 (sweeps, plain versions) and of the frame for each
-     engine and backend.
+     engine and backend, and the device time (torch.profiler) of K1, K2 and
+     the ``fused`` frame beside their wall times.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Every measured number also goes to
-standard error as one ``report:`` JSON line.
+standard error as one ``report:`` JSON line and to
+``chiprun_out/chip_smoke_report.json`` beside this script.
 """
 
 import json
@@ -48,10 +56,15 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and the float32
-# rate outside the tensor cores (also taken for int32 operations)
+# H100 SXM published peaks (NVIDIA data sheet): the HBM3 rate, and the float32
+# rate outside the tensor cores.  That rate, 67e12, counts a fused
+# multiply-add as two operations a lane a cycle.  These kernels may not fuse
+# (the blur rounds every product and every sum on its own) and their other
+# work is integer and bit operations, one a lane a cycle: their operation
+# bound takes half the published rate.
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+F32_FMA_OPS_PER_S = 67e12
+SEPARATE_OPS_PER_S = F32_FMA_OPS_PER_S / 2
 SIGMA, MN, MX = 1.4, 30, 90
 SIZES = {"1080p": (1080, 1920), "4k": (2160, 3840)}
 
@@ -121,6 +134,7 @@ def main():
     import torch
 
     check(torch.cuda.is_available(), "no CUDA device")
+    t_run = time.perf_counter()
     from canny_edge_tpu_torch import CannyTorch
     from canny_edge_tpu_torch.kernels import _build
     from canny_edge_tpu_torch.kernels import frontend as kfe
@@ -131,6 +145,7 @@ def main():
     from canny_edge_tpu_torch.ops import banded as Bd
     from canny_edge_tpu_torch.ops import dilate as Dl
     from canny_edge_tpu_torch.ops import packed as P
+    from canny_edge_tpu_torch.ops import packed_tiles as Tl
     from canny_edge_tpu_torch.ops import window as Wn
     from canny_edge_tpu_torch.ops.gaussian import gaussian_kernel
 
@@ -165,10 +180,16 @@ def main():
     t0 = time.perf_counter()
     k1_cases = 0
     k1_err = 0
-    for sigma in (0.5, 1.0, 1.4, 2.0, 3.0):
+    k1_windows = set()
+    # windows 3, 5, 7, 9, 11, 13, 15 (each unrolled) and 19 (the generic one)
+    for sigma in (0.3, 0.5, 1.0, 1.2, 1.4, 2.0, 2.3, 3.0):
         kern = gaussian_kernel(sigma)
+        k1_windows.add(len(kern))
         taps = torch.from_numpy(kern).to(dev)
-        shapes = list(SIZES.values()) + [(257, 333), (1, 50), (50, 1), (3, 200)]
+        shapes = list(SIZES.values()) + [
+            (257, 333), (1, 50), (50, 1), (3, 200),
+            (63, 65), (65, 63), (64, 64), (129, 127),           # tile +- 1
+            (40, 1), (40, 31), (40, 33), (70, 1000), (70, 1921)]
         for h, w in shapes:
             img = torch.from_numpy(make_image(h, w, seed=h + w)).to(dev)
             ref = Wn.frontend_nm(img, kern)
@@ -177,64 +198,101 @@ def main():
             k1_err = max(k1_err, int((nm.to(torch.int32) - ref).abs().max()))
             check(torch.equal(nm.to(torch.int32), ref),
                   f"K1 nm differs: sigma {sigma} {h}x{w}")
-            for mn, mx in ((30, 90), (0, 40), (50, 150)):
+            pairs = [(30, 90), (0, 40), (50, 150)]
+            if (h, w) == (257, 333):
+                pairs.append((-2**31, 2**30))
+            for mn, mx in pairs:
                 weak, strong = kfe.frontend(img, taps, (mn, mx))
                 sync()
                 check(u32eq(weak, P.pack_mask(ref >= mn))
                       and u32eq(strong, P.pack_mask(ref >= mx)),
                       f"K1 masks differ: sigma {sigma} {h}x{w} {mn}/{mx}")
             k1_cases += 1
-    report["k1_check"] = {"cases": k1_cases, "s": time.perf_counter() - t0}
-    log(f"K1 bit-equal on {k1_cases} image cases x 4 modes")
+    check(k1_windows == {3, 5, 7, 9, 11, 13, 15, 19},
+          f"K1 windows checked: {sorted(k1_windows)}")
+    report["k1_check"] = {"cases": k1_cases, "windows": sorted(k1_windows),
+                          "s": time.perf_counter() - t0}
+    log(f"K1 bit-equal on {k1_cases} image cases x 4 modes, windows "
+        f"{sorted(k1_windows)}")
 
-    # ---- 4. K2 against its plain version ----
+    # ---- 4. K2 against its plain versions, all four modes ----
     t0 = time.perf_counter()
     rng = np.random.default_rng(7)
     taps14 = torch.from_numpy(gaussian_kernel(SIGMA)).to(dev)
+    # name -> (NMS map or None, (weak, strong), h, w, lo, hi)
     flood_cases = {}
+
+    def add_nm_case(name, nm, lo, hi):
+        nm = torch.as_tensor(nm).to(dev)
+        flood_cases[name] = (nm, (P.pack_mask(nm >= lo), P.pack_mask(nm >= hi)),
+                             nm.shape[0], nm.shape[1], lo, hi)
+
     for name, (h, w) in SIZES.items():
         img = torch.from_numpy(make_image(h, w)).to(dev)
-        flood_cases[f"k1_masks_{name}"] = (kfe.frontend(img, taps14, (MN, MX)),
-                                           h, w)
-    sn = torch.from_numpy(snake_nm(1080, 1920)).to(dev)
-    flood_cases["snake_1080p"] = ((P.pack_mask(sn >= 10), P.pack_mask(sn >= 100)),
-                                  1080, 1920)
-    for dens in (0.5, 0.6):
-        weak = rng.random((1080, 1920)) < dens
-        strong = weak & (rng.random((1080, 1920)) < 0.002)
-        flood_cases[f"random_{dens}"] = (
-            (P.pack_mask(torch.from_numpy(weak).to(dev)),
-             P.pack_mask(torch.from_numpy(strong).to(dev))), 1080, 1920)
-    quirk = torch.zeros((16, 64), dtype=torch.int32, device=dev)
+        add_nm_case(f"k1_nm_{name}", kfe.frontend(img, taps14), MN, MX)
+    add_nm_case("snake_1080p", snake_nm(1080, 1920), 10, 100)
+    add_nm_case("spiral_40", spiral_nm(), 10, 100)
+    add_nm_case("random_nm_1080p", random_nm(rng, 1080, 1920), 10, 95)
+    quirk = np.zeros((16, 64), np.int32)
     quirk[1, 0], quirk[8, 40] = 10, 10   # strong
     quirk[0, 1:10], quirk[8, 30:60] = 3, 5   # weak runs; the first is
     # reachable only through the promotion strict mode excludes
-    flood_cases["quirk_16x64"] = ((P.pack_mask(quirk >= 2),
-                                   P.pack_mask(quirk >= 10)), 16, 64)
-    for h, w in ((64, 33), (1, 1000), (1, 1), (40, 1)):
-        weak = rng.random((h, w)) < 0.6
-        strong = weak & (rng.random((h, w)) < 0.05)
-        flood_cases[f"random_{h}x{w}"] = (
-            (P.pack_mask(torch.from_numpy(weak).to(dev)),
-             P.pack_mask(torch.from_numpy(strong).to(dev))), h, w)
+    add_nm_case("quirk_16x64", quirk, 2, 10)
+    for h, w in ((64, 33), (1, 1000), (1, 1), (40, 1), (40, 31), (257, 333),
+                 (63, 65), (65, 63), (129, 127), (9, 1025), (70, 1000),
+                 (70, 1921)):
+        add_nm_case(f"random_{h}x{w}", random_nm(rng, h, w), MN, MX)
+    for dens in (0.5, 0.6):                # masks only: no NMS map
+        weak = rng.random((1080, 1920)) < dens
+        strong = weak & (rng.random((1080, 1920)) < 0.002)
+        flood_cases[f"random_{dens}"] = (
+            None, (P.pack_mask(torch.from_numpy(weak).to(dev)),
+                   P.pack_mask(torch.from_numpy(strong).to(dev))),
+            1080, 1920, 0, 0)
     k2_steps = {}
     k2_err = 0
-    for name, ((weak, strong), h, w) in flood_cases.items():
+    k2_modes = 0
+    for name, (nm, (weak, strong), h, w, lo, hi) in flood_cases.items():
         for strict in (False, True):
-            out, steps = khp.hysteresis_packed(weak, strong, h, w,
-                                               strict=strict, return_steps=True)
-            sync()
+            tag = f"{name}/{'strict' if strict else 'component'}"
             ref, rounds = P.hysteresis_packed_masks(weak, strong, h, w,
                                                     strict=strict)
+            ref16 = P.unpack_edges(ref, w)
+            _, mirror_steps, mirror_floods = Tl.hysteresis_packed_tiles(
+                weak.cpu(), strong.cpu(), h, w, strict=strict)
+            calls = dict(P.calls)
+            out, steps = khp.hysteresis_packed(weak, strong, h, w,
+                                               strict=strict, return_steps=True)
+            out16 = khp.hysteresis_packed(weak, strong, h, w, strict=strict,
+                                          edges_int16=True)
+            outs = [out, out16]
+            if nm is not None:
+                for t in (nm.to(torch.int16), nm.to(torch.int32)):
+                    outs.append(khp.hysteresis_packed_nm(
+                        t, lo, hi, strict=strict, packed_out=True))
+                    outs.append(khp.hysteresis_packed_nm(t, lo, hi,
+                                                         strict=strict))
+            sync()
+            check(P.calls == calls, f"K2 ran a plain pack/unpack: {tag}")
+            for o in outs:
+                if o.dtype == torch.int16:
+                    check(o.shape == (h, w) and torch.equal(o, ref16),
+                          f"K2 int16 output differs: {tag}")
+                else:
+                    check(u32eq(o, ref), f"K2 packed output differs: {tag}")
+                k2_modes += 1
             # largest per-pixel difference (edge bits are 0 or 1)
-            k2_err = max(k2_err, int((P.unpack_mask(out, w).to(torch.int8)
-                                      - P.unpack_mask(ref, w).to(torch.int8))
-                                     .abs().max()))
-            check(u32eq(out, ref), f"K2 differs: {name} strict={strict}")
-            k2_steps[f"{name}/{'strict' if strict else 'component'}"] = {
-                "kernel_steps": int(steps), "plain_rounds": rounds}
-    report["k2_check"] = {"steps": k2_steps, "s": time.perf_counter() - t0}
-    log(f"K2 bit-equal on {len(flood_cases)} mask cases x 2 modes: {k2_steps}")
+            k2_err = max(k2_err, int((out16 - ref16).abs().max()) // 255)
+            check(1 <= int(steps) <= mirror_steps,
+                  f"K2 took {int(steps)} steps, its mirror {mirror_steps}: "
+                  f"{tag}")
+            k2_steps[tag] = {
+                "kernel_steps": int(steps), "mirror_steps": mirror_steps,
+                "mirror_floods": mirror_floods, "plain_rounds": rounds}
+    report["k2_check"] = {"steps": k2_steps, "outputs": k2_modes,
+                          "s": time.perf_counter() - t0}
+    log(f"K2 bit-equal on {len(flood_cases)} cases x 2 modes, {k2_modes} "
+        f"outputs: {k2_steps}")
 
     # ---- 5. the main path: CannyTorch, launch counts from 0 ----
     t0 = time.perf_counter()
@@ -244,6 +302,7 @@ def main():
               for m in ("component", "strict-reference")}
     kfe.launches = 0
     khp.launches = 0
+    plain_calls = dict(P.calls)
     outs = {}
     for mode, model in models.items():
         for name, fr in frames.items():
@@ -256,6 +315,9 @@ def main():
     log(f"main path launches: {counts}")
     check(counts["frontend"] > 0 and counts["hysteresis_packed"] > 0,
           f"a kernel of the main path was not launched: {counts}")
+    check(P.calls == plain_calls,
+          f"the main path called a plain pack/unpack: {P.calls} from "
+          f"{plain_calls}")
 
     def plain_packed(img, strict):
         h, w = img.shape
@@ -304,29 +366,63 @@ def main():
             samples.append(a.elapsed_time(b) / n)
         return float(np.median(samples))
 
+    def host_ms(fn, n=200):
+        """Host time to enqueue one call: n calls back to back, the queue
+        empty at the start and deep enough never to block."""
+        fn()
+        sync()
+        t_start = time.perf_counter()
+        for _ in range(n):
+            fn()
+        per_call = (time.perf_counter() - t_start) / n * 1e3
+        sync()
+        return per_call
+
     model = models["component"]
     times = {}
     for name, (h, w) in SIZES.items():
         img = torch.from_numpy(frames[name][0]).to(dev)
         weak, strong = kfe.frontend(img, taps14, (MN, MX))
+        nm = kfe.frontend(img, taps14)
         kern = gaussian_kernel(SIGMA)
-        _, steps = khp.hysteresis_packed(weak, strong, h, w, return_steps=True)
         _, rounds = P.hysteresis_packed_masks(weak, strong, h, w)
         t = {
             "k1_ms": time_ms(lambda: kfe.frontend(img, taps14, (MN, MX)), 50),
+            "k1_nm_ms": time_ms(lambda: kfe.frontend(img, taps14), 50),
             "k2_ms": time_ms(lambda: khp.hysteresis_packed(weak, strong, h, w),
                              50),
+            # empty masks: one step that floods nothing, the kernel's floor
+            "k2_empty_ms": time_ms(lambda: khp.hysteresis_packed(
+                torch.zeros_like(weak), torch.zeros_like(weak), h, w), 50),
             "frame_ms": time_ms(lambda: model(img, MN, MX), 20),
             "frame_packed_ms": time_ms(lambda: model.packed(img, MN, MX), 20),
             "k1_plain_ms": time_ms(
                 lambda: Wn.frontend_nm(img, kern, (MN, MX)), 3, 3),
             "k2_plain_ms": time_ms(
                 lambda: P.hysteresis_packed_masks(weak, strong, h, w), 3, 3),
+            "k2_nm_int16_plain_ms": time_ms(
+                lambda: P.hysteresis_packed(nm, MN, MX), 3, 3),
             "frame_plain_ms": time_ms(
                 lambda: P.unpack_edges(plain_packed(img, False), w), 3, 3),
-            "k2_steps": int(steps),
             "k2_plain_rounds": rounds,
         }
+        for key, fn in (
+                ("k1", lambda: kfe.frontend(img, taps14, (MN, MX))),
+                ("k2", lambda: khp.hysteresis_packed(weak, strong, h, w)),
+                ("k2_nm_int16", lambda: khp.hysteresis_packed_nm(nm, MN, MX)),
+                ("frame", lambda: model(img, MN, MX)),
+                ("frame_impl_packed", lambda: canny_fused(
+                    img, MN, MX, kernel_vals=taps14))):
+            t[f"{key}_host_ms"] = host_ms(fn)
+        for key, fn in (
+                ("k2_int16", lambda: khp.hysteresis_packed(
+                    weak, strong, h, w, edges_int16=True)),
+                ("k2_nm_int16", lambda: khp.hysteresis_packed_nm(nm, MN, MX)),
+                ("k2_nm_packed", lambda: khp.hysteresis_packed_nm(
+                    nm, MN, MX, packed_out=True))):
+            t[f"{key}_ms"] = time_ms(fn, 50)
+        _, steps = khp.hysteresis_packed(weak, strong, h, w, return_steps=True)
+        t["k2_steps"] = int(steps)
         wd = -(-w // 32)
         window = len(kern)
         # K1: each input byte read once, the two packed masks written once;
@@ -338,13 +434,18 @@ def main():
         # flood over every word (~40 operations a word) is the least work
         k2_bytes = 3 * h * wd * 4
         k2_ops = 40 * h * wd
-        for k, b, o in (("k1", k1_bytes, k1_ops), ("k2", k2_bytes, k2_ops)):
-            tb, to = b / HBM_BYTES_PER_S * 1e3, o / F32_OPS_PER_S * 1e3
+        # K2 from an NMS map to int16 edges: 2 + 2 bytes a pixel, and two
+        # compares and a select a pixel more
+        k2n_bytes = 4 * h * w
+        k2n_ops = k2_ops + 3 * h * w
+        for k, b, o in (("k1", k1_bytes, k1_ops), ("k2", k2_bytes, k2_ops),
+                        ("k2_nm_int16", k2n_bytes, k2n_ops)):
+            tb, to = b / HBM_BYTES_PER_S * 1e3, o / SEPARATE_OPS_PER_S * 1e3
             t[f"{k}_bound_ms"] = max(tb, to)
             t[f"{k}_bound_by"] = "bytes" if tb >= to else "operations"
         times[name] = t
         log(f"times {name}: {t}")
-    (sw, ss), h, w = flood_cases["snake_1080p"]
+    _, (sw, ss), h, w = flood_cases["snake_1080p"][:4]
     _, steps = khp.hysteresis_packed(sw, ss, h, w, return_steps=True)
     times["snake_1080p"] = {
         "k2_ms": time_ms(lambda: khp.hysteresis_packed(sw, ss, h, w), 3, 3),
@@ -420,9 +521,10 @@ def main():
     strict_pallas = CannyTorch(SIGMA, hysteresis_mode="strict-reference",
                                backend="pallas")
     imgs = {name: torch.from_numpy(fr[0]).to(dev) for name, fr in frames.items()}
-    pouts, per_run = {}, {}
+    pouts, per_run, plain_by_run = {}, {}, {}
     for run in [*IMPLS, "model/pallas", "model/xla", "model/pallas-strict"]:
         before = launch_counts()
+        plain_calls = dict(P.calls)
         for name, img in imgs.items():
             if run in IMPLS:
                 pouts[run, name] = canny_fused(img, MN, MX, kernel_vals=taps14,
@@ -435,6 +537,7 @@ def main():
                 pouts[run + "/batch", name] = model.batch(np.stack(
                     frames[name][:2]), MN, MX)
         per_run[run] = {k: v - before[k] for k, v in launch_counts().items()}
+        plain_by_run[run] = sum(P.calls.values()) - sum(plain_calls.values())
     sync()
     pallas_counts = launch_counts()
     log(f"pallas path launches: {pallas_counts} by run {per_run}")
@@ -450,6 +553,10 @@ def main():
               f"{run} launched {c}, expected exactly {sorted(uses[run])}")
     check(all(v > 0 for v in pallas_counts.values()),
           f"a kernel of the pallas path was not launched: {pallas_counts}")
+    # only the two plain engines (the oracles) may pack or unpack in PyTorch
+    for run, n in plain_by_run.items():
+        check((n > 0) == (run in ("packed-xla", "model/xla")),
+              f"{run} called the plain pack/unpack {n} times")
 
     def plain_edges(img, strict=False):
         return P.hysteresis_packed(Wn.frontend_nm(img, gaussian_kernel(SIGMA)),
@@ -478,34 +585,52 @@ def main():
         check(torch.equal(got.cpu(), cpu_ref),
               f"card and CPU differ on 256x256: {impl}")
     report["pallas_path"] = {"launches": pallas_counts, "by_run": per_run,
+                             "plain_pack_unpack_calls": plain_by_run,
                              "s": time.perf_counter() - t0}
     log("pallas path bit-equal to the plain pipeline")
 
     # ---- 9. times of K3, K4 and the pallas path ----
     t0 = time.perf_counter()
 
-    def device_ms(fn, reps=5):
+    def device_ms(fn, reps=5, tries=3):
         """Device time per call by kernel name (torch.profiler); {} where
-        the profiler records no device time."""
+        the profiler records no device time in any of ``tries`` windows."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
         sync()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            sync()
         by = {}
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", 0) or 0
-            if us > 0 and "CUDA" in str(getattr(e, "device_type", "")):
-                by[e.key[:48]] = us / 1e3 / reps
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                sync()
+            for e in prof.key_averages():
+                us = getattr(e, "self_device_time_total", 0) or 0
+                if us > 0 and "CUDA" in str(getattr(e, "device_type", "")):
+                    by[e.key[:48]] = us / 1e3 / reps
+            if by:
+                break
         return by
 
     for name, (h, w) in SIZES.items():
         img = imgs[name]
         nm = kfe.frontend(img, taps14)
         t = times[name]
+        # device time against the wall times of phase 6: what the host costs
+        weak, strong = kfe.frontend(img, taps14, (MN, MX))
+        for key, fn in (
+                ("k1", lambda: kfe.frontend(img, taps14, (MN, MX))),
+                ("k2", lambda: khp.hysteresis_packed(weak, strong, h, w)),
+                ("k2_empty", lambda: khp.hysteresis_packed(
+                    torch.zeros_like(weak), torch.zeros_like(weak), h, w)),
+                ("k2_nm_int16", lambda: khp.hysteresis_packed_nm(nm, MN, MX)),
+                ("frame", lambda: models["component"](img, MN, MX)),
+                ("frame_impl_packed", lambda: canny_fused(
+                    img, MN, MX, kernel_vals=taps14))):
+            by = device_ms(fn)
+            t[f"{key}_device_ms"] = sum(by.values()) if by else "not measured"
+            t[f"{key}_device_by_kernel"] = by
         _, t["k3_sweeps"] = k3.hysteresis_dilate(nm, MN, MX, return_sweeps=True)
         _, t["k4_sweeps"] = k4.hysteresis_banded(nm, MN, MX, return_sweeps=True)
         t["k3_ms"] = time_ms(lambda: k3.hysteresis_dilate(nm, MN, MX), 20)
@@ -526,12 +651,14 @@ def main():
         # one dilation and row/column flood (~40 operations)
         eng_bytes = 4 * h * w
         eng_ops = 3 * h * w + 40 * h * (-(-w // 32))
-        tb, to = eng_bytes / HBM_BYTES_PER_S * 1e3, eng_ops / F32_OPS_PER_S * 1e3
+        tb, to = eng_bytes / HBM_BYTES_PER_S * 1e3, eng_ops / SEPARATE_OPS_PER_S * 1e3
         for k in ("k3", "k4"):
             t[f"{k}_bound_ms"] = max(tb, to)
             t[f"{k}_bound_by"] = "bytes" if tb >= to else "operations"
         log(f"times {name}: {t}")
     sn = chains["snake_1080p"]
+    times["snake_1080p"]["k2_nm_int16_ms"] = time_ms(
+        lambda: khp.hysteresis_packed_nm(sn, 10, 100), 3, 3)
     for k, kern in (("k3", k3.hysteresis_dilate), ("k4", k4.hysteresis_banded)):
         _, sweeps = kern(sn, 10, 100, return_sweeps=True)
         times["snake_1080p"][f"{k}_ms"] = time_ms(lambda: kern(sn, 10, 100), 3, 3)
@@ -563,7 +690,12 @@ def main():
          "ms": t1["k2_ms"], "plain_ms": t1["k2_plain_ms"],
          "bound_ms": t1["k2_bound_ms"], "bound_by": t1["k2_bound_by"],
          "library_ms": None, "match": True, "shape": "1080x1920",
-         "steps": t1["k2_steps"], "ms_4k": times["4k"]["k2_ms"]},
+         "steps": t1["k2_steps"], "ms_4k": times["4k"]["k2_ms"],
+         "nm_int16_ms": t1["k2_nm_int16_ms"],
+         "nm_int16_plain_ms": t1["k2_nm_int16_plain_ms"],
+         "nm_int16_bound_ms": t1["k2_nm_int16_bound_ms"],
+         "nm_int16_bound_by": t1["k2_nm_int16_bound_by"],
+         "nm_int16_ms_4k": times["4k"]["k2_nm_int16_ms"]},
     ]
     for k, name, src, line in (
             ("k3", "hysteresis_dilate", "hysteresis_dilate.cu",
@@ -581,7 +713,12 @@ def main():
             "sweeps": t1[f"{k}_sweeps"], "ms_4k": times["4k"][f"{k}_ms"],
             "plain_ms_4k": times["4k"][f"{k}_plain_ms"]})
     report["kernels"] = kernels
+    report["total_s"] = time.perf_counter() - t_run
     log("report: " + json.dumps(report))
+    out_dir = os.path.join(ROOT, "chiprun_out")     # listed in .gitignore
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke_report.json"), "w") as f:
+        json.dump(report, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

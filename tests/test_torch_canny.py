@@ -158,7 +158,8 @@ def test_import_loads_no_jax():
             "canny_edge_tpu_torch.kernels.hysteresis, "
             "canny_edge_tpu_torch.kernels.hysteresis_v2, "
             "canny_edge_tpu_torch.kernels.fused, canny_edge_tpu_torch.ops."
-            "dilate, canny_edge_tpu_torch.ops.banded; "
+            "dilate, canny_edge_tpu_torch.ops.banded, "
+            "canny_edge_tpu_torch.ops.packed_tiles; "
             "bad = [m for m in set(sys.modules) - before if m.split('.')[0] "
             "in ('jax', 'jaxlib', 'canny_edge_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
