@@ -44,17 +44,17 @@ SIGNATURES = {
     "hysteresis_dilate": {
         "canny_dilate_smem_bytes": [_I, _I],
         "canny_dilate_smem_limit": [],
-        "canny_dilate_pack": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
-        "canny_dilate_sweep": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
-        "canny_dilate_unpack": [_P, _I, _I, _P, _P],
+        "canny_dilate_scratch_words": [_I, _I, _I, _I],
+        "canny_dilate": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                         _L, _P],
     },
     "hysteresis_banded": {
         "canny_banded_smem_bytes": [_I, _I],
         "canny_banded_smem_limit": [],
         "canny_banded_max_width": [],
-        "canny_banded_pack": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
-        "canny_banded_sweep": [_P, _P, _P, _I, _I, _I, _P, _P],
-        "canny_banded_unpack": [_P, _I, _I, _P, _P],
+        "canny_banded_scratch_words": [],
+        "canny_banded": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _L,
+                         _P],
     },
 }
 

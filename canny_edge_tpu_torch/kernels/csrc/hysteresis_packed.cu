@@ -31,7 +31,8 @@
 //            carry-add inside each word, the carries between the 32 words
 //            scanned by the same carry-add on the warp's ballots) and a
 //            flood down and up each column of registers, until a dilation
-//            changes nothing (__any_sync).  Changed words go back to device
+//            changes nothing (__any_sync; masks.cuh: tile_halo, tile_flood,
+//            shared with K3's sub-tiles).  Changed words go back to device
 //            memory.  Step 0 starts from the strong mask itself, so the
 //            first dilation is the plain flood's prologue
 //            weak & dilate8(strong) and needs no pass of its own.
@@ -66,16 +67,15 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-using masks::hrow;
-using masks::run_fill;
-using masks::run_fill_down;
+using masks::pack_any;
+using masks::unpack_phase;
 
 typedef unsigned long long u64;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int TILE_WORDS = 32;       // one word a lane
-constexpr int R = 8;                 // rows of a tile, in registers
+constexpr int R = masks::TILE_ROWS;   // rows of a tile, in registers
 constexpr uint32_t FULL = 0xffffffffu;
 
 struct Args {
@@ -102,121 +102,6 @@ __device__ __forceinline__ uint32_t strict_fix(uint32_t d, uint32_t p0,
   return (d & ~2u) | (val << 1);
 }
 
-// two int16 values in one 32-bit word -> their two bits of `v >= t`
-__device__ __forceinline__ uint32_t ge2(uint32_t x, int t) {
-  const int a = (int)(x << 16) >> 16, b = (int)x >> 16;   // sign extended
-  return (a >= t ? 1u : 0u) | (b >= t ? 2u : 0u);
-}
-
-// 16 bytes of NMS values -> their threshold bits, value i at bit `at + i`
-__device__ __forceinline__ void threshold16(const int16_t*, uint4 raw, int at,
-                                            int lo, int hi, uint32_t& bw,
-                                            uint32_t& bs) {
-  bw |= (ge2(raw.x, lo) | (ge2(raw.y, lo) << 2) | (ge2(raw.z, lo) << 4)
-         | (ge2(raw.w, lo) << 6)) << at;
-  bs |= (ge2(raw.x, hi) | (ge2(raw.y, hi) << 2) | (ge2(raw.z, hi) << 4)
-         | (ge2(raw.w, hi) << 6)) << at;
-}
-
-__device__ __forceinline__ void threshold16(const int32_t*, uint4 raw, int at,
-                                            int lo, int hi, uint32_t& bw,
-                                            uint32_t& bs) {
-  const int q[4] = {(int)raw.x, (int)raw.y, (int)raw.z, (int)raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    bw |= (uint32_t)(q[i] >= lo) << (at + i);
-    bs |= (uint32_t)(q[i] >= hi) << (at + i);
-  }
-}
-
-// weak = nm >= lo, strong = nm >= hi (signed); thread `gtid` of `nthreads`
-// packs words gtid, gtid + nthreads, ...: a whole word whose 32 values start
-// on a 16-byte boundary is read in 16-byte loads, any other value by value
-template <typename T>
-__device__ void pack_phase(const T* __restrict__ nm, int H, int W, int lo,
-                           int hi, uint32_t* weak, uint32_t* strong,
-                           size_t gtid, size_t nthreads) {
-  constexpr int PER = 16 / (int)sizeof(T);      // values in 16 bytes
-  const int wd = (W + 31) / 32;
-  const size_t nwords = (size_t)H * wd;
-  for (size_t word = gtid; word < nwords; word += nthreads) {
-    const size_t r = word / wd;
-    const int c0 = (int)(word % wd) * 32;
-    const T* p = nm + r * W + c0;
-    uint32_t bw = 0u, bs = 0u;
-    if (c0 + 32 <= W && (reinterpret_cast<uintptr_t>(p) & 15u) == 0u) {
-      uint4 raw[32 / PER];
-#pragma unroll
-      for (int q = 0; q < 32 / PER; ++q)
-        raw[q] = __ldg(reinterpret_cast<const uint4*>(p) + q);
-#pragma unroll
-      for (int q = 0; q < 32 / PER; ++q)
-        threshold16(p, raw[q], q * PER, lo, hi, bw, bs);
-    } else {
-#pragma unroll
-      for (int b = 0; b < 32; ++b) {      // no early exit: loads in flight
-        const int x = c0 + b < W ? (int)p[b] : INT_MIN;
-        bw |= (c0 + b < W && x >= lo ? 1u : 0u) << b;
-        bs |= (c0 + b < W && x >= hi ? 1u : 0u) << b;
-      }
-    }
-    weak[word] = bw;
-    strong[word] = bs;
-  }
-}
-
-__device__ __forceinline__ void pack_any(const void* nm, int nm_bytes, int H,
-                                         int W, int lo, int hi, uint32_t* weak,
-                                         uint32_t* strong, size_t gtid,
-                                         size_t nthreads) {
-  if (nm_bytes == 2)
-    pack_phase((const int16_t*)nm, H, W, lo, hi, weak, strong, gtid, nthreads);
-  else
-    pack_phase((const int32_t*)nm, H, W, lo, hi, weak, strong, gtid, nthreads);
-}
-
-// two mask bits -> two int16 {0, 255} in one 32-bit word
-__device__ __forceinline__ uint32_t expand2(uint32_t b) {
-  return ((b & 1u) ? 0x000000ffu : 0u) | ((b & 2u) ? 0x00ff0000u : 0u);
-}
-
-// packed edges -> int16 {0, 255}; thread `gtid` of `nthreads` writes the
-// 16-byte chunks gtid, gtid + nthreads, ... of the flat (H * W) output
-__device__ void unpack_phase(const uint32_t* e, int H, int W, int16_t* out,
-                             size_t gtid, size_t nthreads) {
-  const int wd = (W + 31) / 32;
-  const size_t n = (size_t)H * W, nch = n / 8;
-  uint4* out4 = reinterpret_cast<uint4*>(out);
-  if (W % 8 == 0) {
-    const size_t cpr = W / 8;       // a chunk is one byte of one word
-    for (size_t k = gtid; k < nch; k += nthreads) {
-      const size_t r = k / cpr;
-      const int q = (int)(k % cpr);
-      const uint32_t b = (__ldcg(e + r * wd + (q >> 2)) >> (8 * (q & 3))) & 0xffu;
-      out4[k] = make_uint4(expand2(b), expand2(b >> 2), expand2(b >> 4),
-                           expand2(b >> 6));
-    }
-  } else {                          // a chunk may straddle rows and words
-    for (size_t k = gtid; k < nch; k += nthreads) {
-      size_t r = (8 * k) / W;
-      int c = (int)((8 * k) % W);
-      uint32_t b = 0;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        b |= ((__ldcg(e + r * wd + (c >> 5)) >> (c & 31)) & 1u) << i;
-        if (++c == W) { c = 0; ++r; }
-      }
-      out4[k] = make_uint4(expand2(b), expand2(b >> 2), expand2(b >> 4),
-                           expand2(b >> 6));
-    }
-  }
-  for (size_t i = 8 * nch + gtid; i < n; i += nthreads) {   // fewer than 8
-    const size_t r = i / W;
-    const int c = (int)(i % W);
-    out[i] = ((__ldcg(e + r * wd + (c >> 5)) >> (c & 31)) & 1u) ? 255 : 0;
-  }
-}
-
 __global__ void __launch_bounds__(THREADS, 1) flood_kernel(Args a) {
   static_assert(R >= 2, "the strict fix reads rows 0 and 1 of tile 0");
   static_assert(R + 2 <= 32, "one lane per row of the side columns");
@@ -239,15 +124,6 @@ __global__ void __launch_bounds__(THREADS, 1) flood_kernel(Args a) {
     return (r >= 0 && r < H && j >= 0 && j < wd)
                ? __ldcg(p + (size_t)r * wd + j) : 0u;
   };
-  // a row of the tile dilated by one column each way; `extra` carries the
-  // bits that enter from the tiles left and right
-  auto HR = [&](uint32_t x, uint32_t extra) -> uint32_t {
-    uint32_t l = __shfl_up_sync(FULL, x, 1), rr = __shfl_down_sync(FULL, x, 1);
-    if (lane == 0) l = 0u;
-    if (lane == 31) rr = 0u;
-    return hrow(l, x, rr) | extra;
-  };
-
   const int gwarp = warp * gridDim.x + blockIdx.x;   // tiles spread over blocks
   int step = 0;
   for (;;) {
@@ -276,77 +152,15 @@ __global__ void __launch_bounds__(THREADS, 1) flood_kernel(Args a) {
       const uint32_t rcol = lane < R + 2
                                 ? LD(hp, r0 - 1 + lane, j0 + TILE_WORDS) : 0u;
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
+      for (int r = 0; r < R; ++r)
         o[r] = step == 0 ? (e[r] & w[r]) : e[r];   // what the neighbours assume
-        const uint32_t lw = __shfl_sync(FULL, lcol, r + 1);
-        const uint32_t rw = __shfl_sync(FULL, rcol, r + 1);
-        hx[r] = (lane == 0 ? lw >> 31 : 0u) | (lane == 31 ? rw << 31 : 0u);
-      }
-      // a halo row dilated by one column each way; `at` is its lane in lcol
-      auto halo_row = [&](uint32_t m, int at) -> uint32_t {
-        uint32_t l = __shfl_up_sync(FULL, m, 1), rr = __shfl_down_sync(FULL, m, 1);
-        const uint32_t lc = __shfl_sync(FULL, lcol, at);
-        const uint32_t rc = __shfl_sync(FULL, rcol, at);
-        if (lane == 0) l = lc;
-        if (lane == 31) rr = rc;
-        return hrow(l, m, rr);
-      };
-      const uint32_t htop = halo_row(top, 0), hbot = halo_row(bot, R + 1);
-
-      for (;;) {
-        uint32_t chg = 0u;
-        // dilation (Jacobi: every row term is taken before its row changes)
-        const uint32_t p0 = e[0], p1 = e[1];
-        uint32_t hm = htop, hc = HR(e[0], hx[0]);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          uint32_t hn = hbot;
-          if (r + 1 < R) hn = HR(e[r + 1], hx[r + 1]);
-          uint32_t d = w[r] & (hm | hc | hn);
-          if (r == 0 && strict && t == 0 && lane == 0)
-            d = strict_fix(d, p0, p1, w[0]);
-          chg |= d ^ e[r];
-          e[r] = d;
-          hm = hc;
-          hc = hn;
-        }
-        // a dilation that changes nothing is the fixed-point test: the
-        // floods below only add weak pixels next to an edge, which the
-        // dilation would have added too
-        if (!__any_sync(FULL, chg != 0u)) break;
-        // flood along each row of the tile, both directions
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const uint32_t s = e[r], ww = w[r];
-          uint32_t c = 0u;
-          const uint32_t up = run_fill(ww, s, c);       // seeds toward bit 31
-          const uint32_t gu = __ballot_sync(FULL, c != 0u);   // reaches bit 31
-          c = 0u;
-          const uint32_t dn = run_fill_down(ww, s, c);  // seeds toward bit 0
-          const uint32_t gd = __ballot_sync(FULL, c != 0u);   // reaches bit 0
-          const uint32_t pp = __ballot_sync(FULL, ww == FULL);
-          // bit k of lu: a carry leaves lane k upward; bit 31-k of ld: downward
-          uint32_t z = 0u;
-          const uint32_t lu = run_fill(pp, gu, z);
-          z = 0u;
-          const uint32_t ld = run_fill(__brev(pp), __brev(gd), z);
-          // a carry that enters the word fills its weak run from that end
-          uint32_t n = up | dn;
-          if (lane > 0 && ((lu >> (lane - 1)) & 1u)) n |= ww & (ww ^ (ww + 1u));
-          if (lane < 31 && ((ld >> (30 - lane)) & 1u)) {
-            const uint32_t rv = __brev(ww);
-            n |= __brev(rv & (rv ^ (rv + 1u)));
-          }
-          e[r] = n;
-        }
-        // flood along each column of the tile, down then up
-        uint32_t c = 0u;
-#pragma unroll
-        for (int r = 0; r < R; ++r) c = e[r] |= w[r] & c;
-        c = 0u;
-#pragma unroll
-        for (int r = R - 1; r >= 0; --r) c = e[r] |= w[r] & c;
-      }
+      uint32_t htop, hbot;
+      masks::tile_halo(top, bot, lcol, rcol, lane, htop, hbot, hx);
+      const bool fix = strict && t == 0 && lane == 0;
+      masks::tile_flood(w, e, htop, hbot, hx, lane,
+                        [&](uint32_t d, uint32_t p0, uint32_t p1) {
+                          return fix ? strict_fix(d, p0, p1, w[0]) : d;
+                        });
 
       uint32_t diff = 0u;
 #pragma unroll

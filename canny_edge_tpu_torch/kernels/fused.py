@@ -2,8 +2,11 @@
 hysteresis engines (``canny_edge_tpu/kernels/fused.py:canny_fused``).
 
 On a CUDA tensor every stage is a hand-written kernel except the
-``"packed-xla"`` flood, which is plain PyTorch as it was XLA on the TPU; on
-a CPU tensor every wrapper runs its plain version.  JAX's ``interpret=``
+``"packed-xla"`` flood, which is plain PyTorch as it was XLA on the TPU: a
+frame is two launches, K1 and the engine (K2, K3 or K4, each with its
+thresholds, packing, sweeps and unpacking in one cooperative kernel), and
+nothing comes back to the host inside the call.  On a CPU tensor every
+wrapper runs its plain version.  JAX's ``interpret=``
 has no counterpart: the tensor's device takes its role.  A tensor stays
 where it lies; a NumPy frame goes to ``device``, the card by default.
 """

@@ -3,8 +3,11 @@
 
 int16/int32 NMS magnitude ``(H, W)`` -> int16 {0, 255}.  A CPU tensor goes
 to the plain version (:func:`..ops.dilate.hysteresis_dilate`); a CUDA
-tensor goes to the kernel or raises.  Also home of the host loop that K3
-and K4 share (:func:`run_sweeps`).
+tensor goes to the kernel or raises.  On the card a call is one cooperative
+launch: the thresholds, the packing, every sweep with its stop test and the
+unpacking run in the kernel, and nothing is read back unless the caller
+asks for the sweep count.  Also home of what K3's and K4's wrappers share
+(:func:`check_nm`, :func:`launch_engine`).
 """
 
 from __future__ import annotations
@@ -13,11 +16,13 @@ import torch
 
 from ..ops.dilate import DEFAULT_TILE, tile_shape
 from ..ops.dilate import hysteresis_dilate as dilate_plain
-from ..ops.packed import cdiv
 from . import _build
+from ._scratch import Scratch, buffer, next_token
 
 # kernel launches made by this wrapper (the main path's proof of use)
 launches = 0
+
+_scratch = Scratch()
 
 
 def check_nm(nm: torch.Tensor) -> tuple[int, int]:
@@ -31,26 +36,72 @@ def check_nm(nm: torch.Tensor) -> tuple[int, int]:
     return nm.shape[0], nm.shape[1]
 
 
-def run_sweeps(launch, device, first: int = 0) -> tuple[int, int]:
-    """Drive sweeps until the first sweep ``i >= first`` whose flag stays 0.
+def launch_engine(name, scratch, nm, lo, hi, key, prepare):
+    """One call of the C entry ``canny_<name>(nm, bytes, lo, hi, weak, e0,
+    e1, out, H, W, *config, ctl, token, stream)`` of K3 or K4, on ``nm``'s
+    device and PyTorch's current stream.
 
-    ``launch(i, flag_ptr)`` enqueues sweep ``i``, which sets the int32 at
-    ``flag_ptr`` when another sweep is needed.  Sweeps go out in batches of
-    ``first + 1`` sweeps, then twice as many each time, with one read-back
-    of the batch's flags each, so a run of ``s`` sweeps costs about log2(s)
-    host syncs and at most ``s`` extra sweeps, each of which changes
-    nothing.  Returns ``(sweeps counted, sweeps launched)``.
+    The packed masks and the control words come from ``scratch``, per
+    device, stream, shape and ``key``; ``prepare(lib)`` runs once per entry,
+    raises where the configuration does not fit the card, and returns
+    ``(config, control words)``.  A repeated call costs one dictionary
+    lookup, one ``torch.empty`` (the int16 output) and the launch.  Returns
+    ``(out, entry)``: ``entry["config"]`` is the configuration run and
+    ``entry["ints"]`` an int32 view of the counts the call leaves behind,
+    which the next call on this entry overwrites.
     """
-    done, batch = 0, first + 1
-    while True:
-        flags = torch.zeros(batch, dtype=torch.int32, device=device)
-        for i in range(batch):
-            launch(done + i, flags[i:].data_ptr())
-        for i, f in enumerate(flags.tolist()):
-            if not f and done + i >= first:
-                return done + i + 1, done + batch
-        done += batch
-        batch *= 2
+    if not nm.is_contiguous():
+        nm = nm.contiguous()
+    dev = nm.device
+    h, w = nm.shape
+    with _build.device_guard(dev):
+        stream = _build.stream_handle(dev)
+        entry = scratch.lookup(dev, stream, (h, w, *key))
+        if entry is None:
+            lib = _build.load(f"hysteresis_{name}")
+            config, words = prepare(lib)
+            entry = scratch.create(dev, stream, (h, w, *key), words)
+            entry["config"] = tuple(config)
+            entry["ints"] = entry["ctl"][-2:].view(torch.int32)
+            entry["fn"] = getattr(lib, f"canny_{name}")
+            entry["ptrs"] = tuple(buffer(entry, b, h, w, dev).data_ptr()
+                                  for b in ("weak", "e0", "e1"))
+            entry["ctl_ptr"] = entry["ctl"].data_ptr()
+        out = torch.empty((h, w), dtype=torch.int16, device=dev)
+        err = entry["fn"](nm.data_ptr(), nm.element_size(), int(lo), int(hi),
+                          *entry["ptrs"], out.data_ptr(), h, w,
+                          *entry["config"], entry["ctl_ptr"], next_token(),
+                          stream)
+    _build.check(err, f"canny_{name} launch")
+    return out, entry
+
+
+def _run(nm, min_val, max_val, tile):
+    """``(out, counts)``: ``counts`` holds the sweeps (CPU: a list) and, on
+    the card, also the tile floods and block-wide flood rounds, as an int32
+    device view that nothing has read yet."""
+    global launches
+    h, w = check_nm(nm)
+    th, tw = tile_shape(h, w, tile)
+    if nm.device.type == "cpu":
+        out, sweeps = dilate_plain(nm, min_val, max_val, tile=tile,
+                                   return_sweeps=True)
+        return out, [sweeps]
+
+    def prepare(lib):
+        need = lib.canny_dilate_smem_bytes(th, tw)
+        limit = lib.canny_dilate_smem_limit()
+        if need > limit:
+            raise ValueError(f"tile {th}x{tw} needs {need} bytes of shared "
+                             f"memory a block; this device allows {limit}")
+        return (th, tw), lib.canny_dilate_scratch_words(h, w, th, tw)
+
+    # seeds nm >= max(min_val, max_val): see ops/dilate.py
+    out, entry = launch_engine("dilate", _scratch, nm, min_val,
+                               max(int(min_val), int(max_val)), (th, tw),
+                               prepare)
+    launches += 1
+    return out, entry["ints"]
 
 
 def hysteresis_dilate(nm: torch.Tensor, min_val: int, max_val: int, *,
@@ -59,43 +110,18 @@ def hysteresis_dilate(nm: torch.Tensor, min_val: int, max_val: int, *,
 
     ``tile``: the tile ``(th, tw)`` before the clamping of
     :func:`..ops.dilate.tile_shape`; it changes the sweep count, never the
-    result.  ``return_sweeps``: also return the number of sweeps.
+    result.  ``return_sweeps``: also return the number of sweeps (on the
+    card that reads one word back, the call's only host sync).
     """
-    global launches
-    h, w = check_nm(nm)
-    th, tw = tile_shape(h, w, tile)
-    if nm.device.type == "cpu":
-        return dilate_plain(nm, min_val, max_val, tile=tile,
-                            return_sweeps=return_sweeps)
-    lib = _build.load("hysteresis_dilate")
-    need = lib.canny_dilate_smem_bytes(th, tw)
-    limit = lib.canny_dilate_smem_limit()
-    if need > limit:
-        raise ValueError(f"tile {th}x{tw} needs {need} bytes of shared memory "
-                         f"a block; this device allows {limit}")
-    nm = nm.contiguous()
-    dev = nm.device
-    weak = torch.empty((h, cdiv(w, 32)), dtype=torch.int32, device=dev)
-    bufs = [torch.empty_like(weak), torch.zeros_like(weak)]
-    out = torch.empty((h, w), dtype=torch.int16, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        # seeds nm >= max(min_val, max_val): see ops/dilate.py
-        _build.check(lib.canny_dilate_pack(
-            nm.data_ptr(), nm.element_size(), h, w, int(min_val),
-            max(int(min_val), int(max_val)), weak.data_ptr(),
-            bufs[0].data_ptr(), stream), "canny_dilate_pack launch")
+    out, counts = _run(nm, min_val, max_val, tile)
+    return (out, int(counts[0])) if return_sweeps else out
 
-        def sweep(i, flag):
-            _build.check(lib.canny_dilate_sweep(
-                weak.data_ptr(), bufs[i % 2].data_ptr(),
-                bufs[(i + 1) % 2].data_ptr(), h, w, th, tw, flag, stream),
-                "canny_dilate_sweep launch")
 
-        # sweep 0's flag is not read: the JAX loop always runs sweep 1
-        sweeps, launched = run_sweeps(sweep, dev, first=1)
-        _build.check(lib.canny_dilate_unpack(
-            bufs[launched % 2].data_ptr(), h, w, out.data_ptr(), stream),
-            "canny_dilate_unpack launch")
-    launches += 1
-    return (out, sweeps) if return_sweeps else out
+def dilate_stats(nm: torch.Tensor, min_val: int, max_val: int, *,
+                 tile=DEFAULT_TILE):
+    """:func:`hysteresis_dilate` with the call's counts: ``(out, {"sweeps",
+    "tile_floods", "flood_rounds"})``; on the CPU only ``sweeps``."""
+    out, counts = _run(nm, min_val, max_val, tile)
+    names = ("sweeps", "tile_floods", "flood_rounds")
+    return out, dict(zip(names, list(counts) if isinstance(counts, list)
+                         else counts.tolist()))

@@ -22,63 +22,42 @@ import torch
 
 from ..ops.packed import cdiv, hysteresis_packed_masks, pack_mask, unpack_edges
 from . import _build
+from ._scratch import Scratch, buffer, next_token
 
 # kernel launches made by this wrapper (the main path's proof of use)
 launches = 0
 
-_SCRATCH_MAX = 8
-_scratch: dict = {}
-_sequence = 0
-
-
-def _scratch_for(dev, stream, h, w):
-    """Per device, stream and shape: the kernel's flags and step count
-    (zeroed once; a fresh token per launch keeps them valid) and, made when
-    first needed, the packed buffers of the NMS-map and int16 modes."""
-    key = (dev.index, stream, h, w)
-    entry = _scratch.pop(key, None)
-    if entry is None:
-        words = _build.load("hysteresis_packed") \
-            .canny_hysteresis_packed_scratch_words(h, w)
-        entry = {"ctl": torch.zeros(words, dtype=torch.int64, device=dev)}
-        while len(_scratch) >= _SCRATCH_MAX:
-            _scratch.pop(next(iter(_scratch)))
-    _scratch[key] = entry          # most recently used last
-    return entry
-
-
-def _buffer(entry, name, h, w, dev):
-    if name not in entry:
-        entry[name] = torch.empty((h, cdiv(w, 32)), dtype=torch.uint32,
-                                  device=dev)
-    return entry[name]
+_scratch = Scratch()
 
 
 def _launch(dev, h, w, *, weak=None, strong=None, nm=None, lo=0, hi=0,
             int16_out, strict):
     """One call of the kernel; returns ``(output, steps)`` with ``steps`` a
     0-d view of the scratch that the next call on this shape overwrites."""
-    global launches, _sequence
+    global launches
     lib = _build.load("hysteresis_packed")
     with _build.device_guard(dev):
         stream = _build.stream_handle(dev)
-        entry = _scratch_for(dev, stream, h, w)
+        entry = _scratch.lookup(dev, stream, (h, w))
+        if entry is None:
+            entry = _scratch.create(
+                dev, stream, (h, w),
+                lib.canny_hysteresis_packed_scratch_words(h, w))
         if nm is not None:
-            weak = _buffer(entry, "weak", h, w, dev)
-            strong = _buffer(entry, "strong", h, w, dev)
+            weak = buffer(entry, "weak", h, w, dev)
+            strong = buffer(entry, "strong", h, w, dev)
         if int16_out:
             out = torch.empty((h, w), dtype=torch.int16, device=dev)
-            edges = _buffer(entry, "edges", h, w, dev)
+            edges = buffer(entry, "edges", h, w, dev)
         else:
             out = edges = torch.empty((h, cdiv(w, 32)), dtype=torch.uint32,
                                       device=dev)
-        _sequence += 1
         err = lib.canny_hysteresis_packed(
             weak.data_ptr(), strong.data_ptr(),
             None if nm is None else nm.data_ptr(),
             0 if nm is None else nm.element_size(), int(lo), int(hi),
             edges.data_ptr(), out.data_ptr() if int16_out else None, h, w,
-            int(bool(strict)), entry["ctl"].data_ptr(), _sequence << 32,
+            int(bool(strict)), entry["ctl"].data_ptr(), next_token(),
             stream)
     _build.check(err, "canny_hysteresis_packed launch")
     launches += 1

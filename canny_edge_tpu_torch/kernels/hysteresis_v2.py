@@ -3,7 +3,10 @@
 
 int16/int32 NMS magnitude ``(H, W)`` -> int16 {0, 255}.  A CPU tensor goes
 to the plain version (:func:`..ops.banded.hysteresis_banded`); a CUDA
-tensor goes to the kernel or raises.
+tensor goes to the kernel or raises.  On the card a call is one cooperative
+launch (thresholds, packing, sweeps with their ``needs_more`` test,
+unpacking), and nothing is read back unless the caller asks for the sweep
+count.
 """
 
 from __future__ import annotations
@@ -13,11 +16,48 @@ import torch
 from ..ops.banded import band_params
 from ..ops.banded import hysteresis_banded as banded_plain
 from ..ops.packed import cdiv
-from . import _build
-from .hysteresis import check_nm, run_sweeps
+from ._scratch import Scratch
+from .hysteresis import check_nm, launch_engine
 
 # kernel launches made by this wrapper (the main path's proof of use)
 launches = 0
+
+_scratch = Scratch()
+
+
+def _run(nm, min_val, max_val, band_h, group):
+    """``(out, counts, band_h)``: ``counts`` holds the sweeps (CPU: a list)
+    and, on the card, also the most rounds of a band in a sweep, the rounds
+    summed and the bands run, as an int32 device view that nothing has read
+    yet; ``band_h`` is the band that ran."""
+    global launches
+    h, w = check_nm(nm)
+    asked = band_h is not None
+    band_h, _ = band_params(h, w, band_h, group)
+    if nm.device.type == "cpu":
+        out, sweeps = banded_plain(nm, min_val, max_val, band_h=band_h,
+                                   return_sweeps=True)
+        return out, [sweeps], band_h
+
+    def prepare(lib):
+        if w > lib.canny_banded_max_width():
+            raise ValueError(f"width {w} exceeds the kernel's maximum of "
+                             f"{lib.canny_banded_max_width()}")
+        fit, limit = band_h, lib.canny_banded_smem_limit()
+        while (not asked and fit > 1
+               and lib.canny_banded_smem_bytes(fit, w) > limit):
+            fit = cdiv(fit, 2)
+        need = lib.canny_banded_smem_bytes(fit, w)
+        if need > limit:
+            raise ValueError(f"a band of {fit} rows x {w} columns needs "
+                             f"{need} bytes of shared memory a block; this "
+                             f"device allows {limit}: pass a smaller band_h")
+        return (fit,), lib.canny_banded_scratch_words()
+
+    out, entry = launch_engine("banded", _scratch, nm, min_val, max_val,
+                               (band_h, asked), prepare)
+    launches += 1
+    return out, entry["ints"], entry["config"][0]
 
 
 def hysteresis_banded(nm: torch.Tensor, min_val: int, max_val: int, *,
@@ -30,49 +70,21 @@ def hysteresis_banded(nm: torch.Tensor, min_val: int, max_val: int, *,
     validated.  On the card a default band that does not fit a block's
     shared memory (below 512 rows JAX takes the whole image) is halved
     until it does; a ``band_h`` that was asked for and does not fit raises.
-    ``return_sweeps``: also return the number of sweeps.
+    ``return_sweeps``: also return the number of sweeps (on the card that
+    reads one word back, the call's only host sync).
     """
-    global launches
-    h, w = check_nm(nm)
-    asked = band_h is not None
-    band_h, _ = band_params(h, w, band_h, group)
-    if nm.device.type == "cpu":
-        return banded_plain(nm, min_val, max_val, band_h=band_h,
-                            return_sweeps=return_sweeps)
-    lib = _build.load("hysteresis_banded")
-    if w > lib.canny_banded_max_width():
-        raise ValueError(f"width {w} exceeds the kernel's maximum of "
-                         f"{lib.canny_banded_max_width()}")
-    limit = lib.canny_banded_smem_limit()
-    while (not asked and band_h > 1
-           and lib.canny_banded_smem_bytes(band_h, w) > limit):
-        band_h = cdiv(band_h, 2)
-    need = lib.canny_banded_smem_bytes(band_h, w)
-    if need > limit:
-        raise ValueError(f"a band of {band_h} rows x {w} columns needs {need} "
-                         f"bytes of shared memory a block; this device allows "
-                         f"{limit}: pass a smaller band_h")
-    nm = nm.contiguous()
-    dev = nm.device
-    weak = torch.empty((h, cdiv(w, 32)), dtype=torch.int32, device=dev)
-    bufs = [torch.empty_like(weak), torch.empty_like(weak)]
-    out = torch.empty((h, w), dtype=torch.int16, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.check(lib.canny_banded_pack(
-            nm.data_ptr(), nm.element_size(), h, w, int(min_val),
-            int(max_val), weak.data_ptr(), bufs[0].data_ptr(), stream),
-            "canny_banded_pack launch")
+    out, counts, _ = _run(nm, min_val, max_val, band_h, group)
+    return (out, int(counts[0])) if return_sweeps else out
 
-        def sweep(i, flag):
-            _build.check(lib.canny_banded_sweep(
-                weak.data_ptr(), bufs[i % 2].data_ptr(),
-                bufs[(i + 1) % 2].data_ptr(), h, w, band_h, flag, stream),
-                "canny_banded_sweep launch")
 
-        sweeps, launched = run_sweeps(sweep, dev)
-        _build.check(lib.canny_banded_unpack(
-            bufs[launched % 2].data_ptr(), h, w, out.data_ptr(), stream),
-            "canny_banded_unpack launch")
-    launches += 1
-    return (out, sweeps) if return_sweeps else out
+def banded_stats(nm: torch.Tensor, min_val: int, max_val: int, *,
+                 band_h=None, group=None):
+    """:func:`hysteresis_banded` with the call's counts: ``(out, {"sweeps",
+    "rounds_max", "rounds_sum", "bands_run", "band_h"})``, the rounds being
+    those of a band in a sweep and ``band_h`` the band that ran; on the CPU
+    only ``sweeps`` and ``band_h``."""
+    out, counts, ran = _run(nm, min_val, max_val, band_h, group)
+    names = ("sweeps", "rounds_max", "rounds_sum", "bands_run")
+    stats = dict(zip(names, list(counts) if isinstance(counts, list)
+                     else counts.tolist()))
+    return out, {**stats, "band_h": ran}

@@ -28,14 +28,20 @@ Phases (any failure exits non-zero and prints no result):
      each mode, their plain versions and the whole frame;
   7. K3 and K4 against their plain versions, bit-equal with equal sweep
      counts (K1's NMS maps at 1080p and 4K at 30/90 and 0/40, random maps,
-     257x333, 64x33, 1x1000, 40x1; two tiles and two band heights), and
-     against K2 on the 1080p serpentine and a 40x40 spiral;
+     257x333, 64x33, 1x1000, 40x1; sparse chains 1000, 1921, 3840, 7680 and
+     9000 columns wide: one, two, four and eight words a lane of K4 and its
+     block-wide path; two tiles and two band heights), against K2 on the
+     1080p serpentine and a 40x40 spiral, and 100 calls of each back to
+     back on one frame, compared once at the end;
   8. the ``pallas`` path at 1080p and 4K (sigma 1.4, 30/90): ``canny_fused``
      with each hysteresis engine and ``CannyTorch(backend="pallas")`` /
      ``"xla"``, with every launch count set to 0 just before and read just
      after, then held against the plain pipeline on the card and against
-     the CPU on a small frame;
-  9. times of K3 and K4 (sweeps, plain versions) and of the frame for each
+     the CPU on a small frame; a ``banded`` or ``dilate`` frame is two
+     kernels on the device (torch.profiler) and syncs with the host nowhere
+     (20 calls queued behind a long one return before it ends);
+  9. times of K3 and K4 (wall, host enqueue, device; sweeps, K4's rounds a
+     band, K3's tile floods; plain versions) and of the frame for each
      engine and backend, and the device time (torch.profiler) of K1, K2 and
      the ``fused`` frame beside their wall times.
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -121,6 +127,14 @@ def spiral_nm(n=40):
     for p in pts:
         nm[p] = 30
     nm[pts[-1]] = 200
+    return nm
+
+
+def sparse_nm(rng, h, w):
+    """Thin weak chains with few seeds: several rounds and sweeps."""
+    nm = np.zeros((h, w), np.int16)
+    nm[rng.random((h, w)) < 0.58] = 30
+    nm[rng.random((h, w)) < 0.002] = 200
     return nm
 
 
@@ -351,6 +365,8 @@ def main():
     log("main path bit-equal to the plain pipeline")
 
     # ---- 6. times ----
+    t0 = time.perf_counter()
+
     def time_ms(fn, n=20, reps=5):
         fn()
         sync()
@@ -452,6 +468,7 @@ def main():
         "k2_steps": int(steps)}
     log(f"times snake: {times['snake_1080p']}")
     report["times"] = times
+    report["times_6_s"] = time.perf_counter() - t0
 
     # ---- 7. K3 and K4 against their plain versions ----
     t0 = time.perf_counter()
@@ -462,17 +479,26 @@ def main():
     nm_cases["random_1080p"] = (random_nm(rng, 1080, 1920), [(MN, MX)])
     for h, w in ((257, 333), (64, 33), (1, 1000), (40, 1)):
         nm_cases[f"random_{h}x{w}"] = (random_nm(rng, h, w), [(MN, MX), (0, 40)])
+    for w in (1000, 1921, 3840, 7680, 9000):   # K4: words a lane, block path
+        nm_cases[f"sparse_150x{w}"] = (sparse_nm(rng, 150, w), [(10, 100)])
     alt_tile, alt_band = (32, 100), 16
     engine_sweeps = {}
     engine_err = {"dilate": 0, "banded": 0}
+    phase7_s = {}                # seconds by group of cases, plain versions
     for name, (nm, pairs) in nm_cases.items():
+        t_case = time.perf_counter()
         nm = torch.as_tensor(nm).to(dev)
         full = name.startswith("k1_nm_4k")   # the plain mirrors are slow there
+        one_tile = full or name.startswith("sparse")
         for mn, mx in pairs:
             runs = [("dilate", {"tile": t}) for t in
-                    ([Dl.DEFAULT_TILE] if full else [Dl.DEFAULT_TILE, alt_tile])]
+                    ([Dl.DEFAULT_TILE] if one_tile
+                     else [Dl.DEFAULT_TILE, alt_tile])]
+            # (the default band of a 150-row image is the image, which at
+            # these widths is halved to fit the card: an explicit band there)
             runs += [("banded", {"band_h": b}) for b in
-                     ([None] if full else [None, alt_band])]
+                     ([None] if full else [64, alt_band]
+                      if name.startswith("sparse") else [None, alt_band])]
             for engine, kw in runs:
                 kern, plain = ((k3.hysteresis_dilate, Dl.hysteresis_dilate)
                                if engine == "dilate" else
@@ -486,6 +512,9 @@ def main():
                       f"{engine} differs: {name} {mn}/{mx} {kw} "
                       f"(sweeps {sweeps} vs {ref_sweeps})")
                 engine_sweeps[f"{engine}/{name}/{mn}-{mx}/{kw}"] = sweeps
+        group = name.split("_")[0]
+        phase7_s[group] = phase7_s.get(group, 0.0) + time.perf_counter() - t_case
+    t_case = time.perf_counter()
     chains = {"snake_1080p": torch.from_numpy(snake_nm(1080, 1920)).to(dev),
               "spiral_40": torch.from_numpy(spiral_nm()).to(dev)}
     for name, nm in chains.items():
@@ -503,7 +532,20 @@ def main():
                 check(torch.equal(out, ref), f"{engine} differs from K2: "
                       f"{name} {kw}")
                 engine_sweeps[f"{engine}/{name}/{kw}"] = sweeps
-    report["k3_k4_check"] = {"sweeps": engine_sweeps,
+    phase7_s["chains"] = time.perf_counter() - t_case
+    t_case = time.perf_counter()
+    # 100 calls back to back on one frame: tokens and flags never cleared
+    nm, _ = nm_cases["k1_nm_1080p"]
+    for engine, kern, plain in (
+            ("dilate", k3.hysteresis_dilate, Dl.hysteresis_dilate),
+            ("banded", k4.hysteresis_banded, Bd.hysteresis_banded)):
+        outs = [kern(nm, MN, MX) for _ in range(100)]
+        sync()
+        ref = plain(nm, MN, MX)
+        check(all(torch.equal(o, ref) for o in outs),
+              f"{engine}: a call of 100 back to back differs")
+    phase7_s["100_calls"] = time.perf_counter() - t_case
+    report["k3_k4_check"] = {"sweeps": engine_sweeps, "s_by_group": phase7_s,
                              "s": time.perf_counter() - t0}
     log(f"K3/K4 bit-equal to their plain versions and K2: {engine_sweeps}")
 
@@ -558,6 +600,73 @@ def main():
         check((n > 0) == (run in ("packed-xla", "model/xla")),
               f"{run} called the plain pack/unpack {n} times")
 
+    def profile_kernels(fn, reps=5, tries=3):
+        """``{kernel name: (launches, device ms)}`` per call of ``fn``
+        (torch.profiler, ``reps`` calls a window); {} where the profiler
+        records no device time in any of ``tries`` windows.  A window can
+        lose a record, as a rule its first: the launches are those recorded
+        over ``reps``, so a lost one shows as a fraction, and the time is the
+        mean over the launches recorded times the launches a call."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        sync()
+        by = {}
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                sync()
+            for e in prof.key_averages():
+                us = getattr(e, "self_device_time_total", 0) or 0
+                if us > 0 and "CUDA" in str(getattr(e, "device_type", "")):
+                    per_call = max(1, round(e.count / reps))
+                    by[e.key[:48]] = (e.count / reps,
+                                      us / 1e3 / e.count * per_call)
+            if by:
+                break
+        return by
+
+    # a `banded` or `dilate` frame: K1 and the engine, nothing else on the
+    # device, and no wait for the device inside the call: 20 frames queued
+    # behind ~3 ms of serpentine return long before the device has finished
+    long_nm = torch.from_numpy(snake_nm(1080, 1920)).to(dev)
+    engine_frames = {}
+    for impl in ("banded", "dilate"):
+        img = imgs["1080p"]
+
+        def frame():
+            return canny_fused(img, MN, MX, kernel_vals=taps14,
+                               hysteresis_impl=impl)
+
+        # eight frames a window: two kernel names, each launched once a
+        # frame.  A window can lose records (n < 1 then, and up to three
+        # windows are merged until two names are seen); a third kernel would
+        # be a third name, a second launch of one n >= 1.5
+        by = {}
+        for _ in range(3):
+            for k, (n, _) in profile_kernels(frame, reps=8).items():
+                by[k] = max(n, by.get(k, 0))
+            if len(by) >= 2:
+                break
+        check(len(by) == 2 and all(0 < n <= 1 for n in by.values()),
+              f"a {impl} frame is not two kernels on the device: {by}")
+        sync()
+        t_a = time.perf_counter()
+        k3.hysteresis_dilate(long_nm, 10, 100)
+        for _ in range(20):
+            frame()
+        t_b = time.perf_counter()
+        sync()
+        t_c = time.perf_counter()
+        check(t_b - t_a < 0.5 * (t_c - t_a),
+              f"{impl} frames wait for the device: enqueued in "
+              f"{(t_b - t_a) * 1e3:.3f} ms of {(t_c - t_a) * 1e3:.3f}")
+        engine_frames[impl] = {"kernels_a_frame": by,
+                               "enqueue_21_calls_ms": (t_b - t_a) * 1e3,
+                               "device_done_ms": (t_c - t_a) * 1e3}
+    log(f"engine frames: {engine_frames}")
+
     def plain_edges(img, strict=False):
         return P.hysteresis_packed(Wn.frontend_nm(img, gaussian_kernel(SIGMA)),
                                    MN, MX, strict=strict)
@@ -586,32 +695,16 @@ def main():
               f"card and CPU differ on 256x256: {impl}")
     report["pallas_path"] = {"launches": pallas_counts, "by_run": per_run,
                              "plain_pack_unpack_calls": plain_by_run,
+                             "engine_frames": engine_frames,
                              "s": time.perf_counter() - t0}
     log("pallas path bit-equal to the plain pipeline")
 
     # ---- 9. times of K3, K4 and the pallas path ----
     t0 = time.perf_counter()
 
-    def device_ms(fn, reps=5, tries=3):
-        """Device time per call by kernel name (torch.profiler); {} where
-        the profiler records no device time in any of ``tries`` windows."""
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        sync()
-        by = {}
-        for _ in range(tries):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    fn()
-                sync()
-            for e in prof.key_averages():
-                us = getattr(e, "self_device_time_total", 0) or 0
-                if us > 0 and "CUDA" in str(getattr(e, "device_type", "")):
-                    by[e.key[:48]] = us / 1e3 / reps
-            if by:
-                break
-        return by
+    def device_ms(fn):
+        """Device time per call by kernel name; {} if none was recorded."""
+        return {k: ms for k, (_, ms) in profile_kernels(fn).items()}
 
     for name, (h, w) in SIZES.items():
         img = imgs[name]
@@ -631,11 +724,16 @@ def main():
             by = device_ms(fn)
             t[f"{key}_device_ms"] = sum(by.values()) if by else "not measured"
             t[f"{key}_device_by_kernel"] = by
-        _, t["k3_sweeps"] = k3.hysteresis_dilate(nm, MN, MX, return_sweeps=True)
-        _, t["k4_sweeps"] = k4.hysteresis_banded(nm, MN, MX, return_sweeps=True)
-        t["k3_ms"] = time_ms(lambda: k3.hysteresis_dilate(nm, MN, MX), 20)
-        t["k4_ms"] = time_ms(lambda: k4.hysteresis_banded(nm, MN, MX), 20)
+        _, st3 = k3.dilate_stats(nm, MN, MX)
+        _, st4 = k4.banded_stats(nm, MN, MX)
+        t["k3_sweeps"], t["k4_sweeps"] = st3["sweeps"], st4["sweeps"]
+        t["k3_tile_floods"] = st3["tile_floods"]
+        t["k3_flood_rounds_mean"] = st3["flood_rounds"] / st3["tile_floods"]
+        t["k4_rounds_max"] = st4["rounds_max"]
+        t["k4_rounds_mean"] = st4["rounds_sum"] / st4["bands_run"]
         for k, fn in (("k3", k3.hysteresis_dilate), ("k4", k4.hysteresis_banded)):
+            t[f"{k}_ms"] = time_ms(lambda: fn(nm, MN, MX), 20)
+            t[f"{k}_host_ms"] = host_ms(lambda: fn(nm, MN, MX))
             by = device_ms(lambda: fn(nm, MN, MX))
             t[f"{k}_device_ms"] = sum(by.values()) if by else "not measured"
             t[f"{k}_device_by_kernel"] = by
@@ -663,14 +761,30 @@ def main():
         _, sweeps = kern(sn, 10, 100, return_sweeps=True)
         times["snake_1080p"][f"{k}_ms"] = time_ms(lambda: kern(sn, 10, 100), 3, 3)
         times["snake_1080p"][f"{k}_sweeps"] = sweeps
+    _, st3 = k3.dilate_stats(sn, 10, 100)
+    _, st4 = k4.banded_stats(sn, 10, 100)
+    times["snake_1080p"].update(
+        k3_tile_floods=st3["tile_floods"], k4_rounds_max=st4["rounds_max"],
+        k4_rounds_mean=st4["rounds_sum"] / st4["bands_run"])
     log(f"times snake: {times['snake_1080p']}")
-    # a frame whose default band (the whole image below 512 rows) exceeds a
-    # block's shared memory runs with a halved band
-    tall = torch.from_numpy(random_nm(rng, 500, 1920)).to(dev)
-    out = k4.hysteresis_banded(tall, MN, MX)
-    sync()
-    check(torch.equal(out, Bd.hysteresis_banded(tall, MN, MX)),
-          "K4 differs on 500x1920 with the default band")
+    # A frame whose default band (the whole image below 512 rows) exceeds a
+    # block's shared memory runs with a halved band.  Two footprints above
+    # 48 KB in turn on one kernel: the larger still launches after the
+    # smaller has run (bands of 250 and 200 rows; tiles of 102 and 80 KB).
+    turns = []
+    for h in (500, 400):
+        nm = torch.from_numpy(random_nm(rng, h, 1920)).to(dev)
+        turns.append((k4.hysteresis_banded, nm, {},
+                      Bd.hysteresis_banded(nm, MN, MX)))
+    nm = torch.from_numpy(random_nm(rng, 600, 2048)).to(dev)
+    for tile in ((256, 1024), (200, 1024)):
+        turns.append((k3.hysteresis_dilate, nm, {"tile": tile},
+                      Dl.hysteresis_dilate(nm, MN, MX, tile=tile)))
+    for _ in range(3):
+        for kern, nm, kw, ref in turns:
+            check(torch.equal(kern(nm, MN, MX, **kw), ref),
+                  f"{kern.__name__} differs on {tuple(nm.shape)} {kw} with "
+                  f"footprints alternating")
     report["times_s"] = time.perf_counter() - t0
 
     t1 = times["1080p"]
@@ -711,7 +825,11 @@ def main():
             "bound_ms": t1[f"{k}_bound_ms"], "bound_by": t1[f"{k}_bound_by"],
             "library_ms": None, "match": True, "shape": "1080x1920",
             "sweeps": t1[f"{k}_sweeps"], "ms_4k": times["4k"][f"{k}_ms"],
-            "plain_ms_4k": times["4k"][f"{k}_plain_ms"]})
+            "plain_ms_4k": times["4k"][f"{k}_plain_ms"],
+            "device_ms": t1[f"{k}_device_ms"], "host_ms": t1[f"{k}_host_ms"],
+            "device_ms_4k": times["4k"][f"{k}_device_ms"]})
+    kernels[-1]["rounds"] = {"max": t1["k4_rounds_max"],
+                             "mean": t1["k4_rounds_mean"]}
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_run
     log("report: " + json.dumps(report))
