@@ -1,3 +1,4 @@
 from .canny import CannyTorch
+from .sobel import SobelTorch
 
-__all__ = ["CannyTorch"]
+__all__ = ["CannyTorch", "SobelTorch"]

@@ -50,35 +50,37 @@ def isqrt(n: torch.Tensor) -> torch.Tensor:
 
 
 def blur(img: torch.Tensor, kernel) -> torch.Tensor:
-    """uint8 (H, W) -> float32 floored renormalized Gaussian blur."""
+    """uint8 (..., H, W) -> float32 floored renormalized Gaussian blur."""
     kernel = np.asarray(kernel, np.float32)
-    h, w = img.shape
+    h, w = img.shape[-2:]
     c = kernel.shape[0] // 2
     dev = img.device
     x = F.pad(img.to(torch.float32), (c, c))
-    acc = torch.zeros((h, w), dtype=torch.float32, device=dev)
+    acc = torch.zeros(img.shape, dtype=torch.float32, device=dev)
     for t in range(kernel.shape[0]):
-        acc = acc + x[:, t:t + w] * float(kernel[t])
-    temp = acc / torch.from_numpy(renorm_count(w, kernel)).to(dev)[None, :]
+        acc = acc + x[..., t:t + w] * float(kernel[t])
+    temp = acc / torch.from_numpy(renorm_count(w, kernel)).to(dev)
     temp = F.pad(temp, (0, 0, c, c))
-    acc = torch.zeros((h, w), dtype=torch.float32, device=dev)
+    acc = torch.zeros(img.shape, dtype=torch.float32, device=dev)
     for t in range(kernel.shape[0]):
-        acc = acc + temp[t:t + h] * float(kernel[t])
+        acc = acc + temp[..., t:t + h, :] * float(kernel[t])
     return torch.floor(
         acc / torch.from_numpy(renorm_count(h, kernel)).to(dev)[:, None])
 
 
 def sobel(sm: torch.Tensor):
-    """Integer-valued (H, W) -> int32 (gx, gy) with the reference borders."""
+    """Integer-valued (..., H, W) -> int32 (gx, gy) with the reference borders."""
     s = sm.to(torch.int32)
-    d = torch.cat([s[:, 1:], s[:, -1:]], 1) - torch.cat([s[:, :1], s[:, :-1]], 1)
+    d = (torch.cat([s[..., 1:], s[..., -1:]], -1)
+         - torch.cat([s[..., :1], s[..., :-1]], -1))
     gx = 2 * d
-    gx[:-1] += d[1:]
-    gx[1:] += d[:-1]
-    e = torch.cat([s[1:], s[-1:]], 0) - torch.cat([s[:1], s[:-1]], 0)
+    gx[..., :-1, :] += d[..., 1:, :]
+    gx[..., 1:, :] += d[..., :-1, :]
+    e = (torch.cat([s[..., 1:, :], s[..., -1:, :]], -2)
+         - torch.cat([s[..., :1, :], s[..., :-1, :]], -2))
     gy = 2 * e
-    gy[:, :-1] += e[:, 1:]
-    gy[:, 1:] += e[:, :-1]
+    gy[..., :-1] += e[..., 1:]
+    gy[..., 1:] += e[..., :-1]
     return gx, gy
 
 

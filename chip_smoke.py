@@ -2,13 +2,16 @@
 the kernels of both ported paths: ``CannyTorch``'s ``fused`` backend (K1
 front end -> K2 packed flood -> unpack) and the ``pallas`` backend
 (``canny_fused``: K1 in NMS mode -> K2, K3 tiled dilation or K4 banded
-raster scan).
+raster scan); then drives the command line (frames in, batched and staged
+onto the card, K1 -> K2 a frame, PNGs out), the stage path and
+``SobelTorch`` on the card.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result):
   1. the card's name and power limit (nvidia-smi);
-  2. build every kernel from ``canny_edge_tpu_torch/kernels/csrc`` (nvcc);
+  2. build every kernel from ``canny_edge_tpu_torch/kernels/csrc`` (nvcc)
+     and the native feeder from ``canny_edge_tpu_torch/runtime/csrc`` (g++);
   3. K1 against its plain PyTorch version on the card, bit-equal, in nm and
      threshold mode (8 sigmas: every window the kernel unrolls, 3 to 15, and
      a generic one, 19; 1080p and 4K, shapes one off its 64x64 tile, W = 1,
@@ -43,17 +46,38 @@ Phases (any failure exits non-zero and prints no result):
   9. times of K3 and K4 (wall, host enqueue, device; sweeps, K4's rounds a
      band, K3's tile floods; plain versions) and of the frame for each
      engine and backend, and the device time (torch.profiler) of K1, K2 and
-     the ``fused`` frame beside their wall times.
+     the ``fused`` frame beside their wall times;
+ 10. the command-line path (``canny_edge_tpu_torch.cli``), each run with
+     K1's and K2's counts from 0 and no plain pack or unpack allowed: a
+     16-frame 1080p synthetic stream (batches of 4, prefetch 4), again with
+     ``--packed-transfer``, ``--backend pallas`` and ``--resume`` after a
+     stop halfway, a 4K stream, a ``raw8`` file and a PGM directory through
+     the native feeder (and the PGM directory without it), and one ``python
+     -m canny_edge_tpu_torch.cli``: every PNG, read back with the port's
+     reader, equals ``CannyTorch``'s edges and each kernel ran once a frame;
+     ``with_intermediates`` on the card at 1080p (``nonmax`` equal to K1's NMS
+     map, edges to the fused frame, every intermediate and the dilation
+     count to the CPU's), ``-s``'s three step images, ``SobelTorch`` card
+     against CPU, ``--time``'s stage table; times: the stream of 64 frames
+     at 1080p in batches of 8 by wall clock, the same stream without the
+     model (their ratio), the stream of 64 ready 1080p frames from a
+     ``raw8`` file three times (its spread) and once under
+     ``utils.trace`` (the card's idle share), the stage path and
+     ``SobelTorch`` a frame.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Every measured number also goes to
 standard error as one ``report:`` JSON line and to
 ``chiprun_out/chip_smoke_report.json`` beside this script.
 """
 
+import concurrent.futures
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -144,12 +168,314 @@ def random_nm(rng, h, w):
     return nm
 
 
+def run_cli(argv, stderr=None):
+    """``cli.main(argv)`` in this process: its ``--json`` stats."""
+    from canny_edge_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(stderr or sys.stderr):
+        rc = cli.main(argv)
+    check(rc == 0, f"the command line exited {rc}: {argv}")
+    return json.loads(out.getvalue())
+
+
+def device_busy_s(trace_json):
+    """Seconds in which the card ran a kernel, a copy or a fill in a Chrome
+    trace of ``torch.profiler`` (the union of those events' intervals);
+    ``None`` where the trace holds no device event."""
+    with open(trace_json) as f:
+        events = json.load(f).get("traceEvents", [])
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("ph") == "X" and str(e.get("cat", "")).lower()
+                   in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not spans:
+        return None
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    return (busy + hi - lo) / 1e6
+
+
+def check_pngs(out_dir, refs, what):
+    """Every ``edges_%06d.png`` in ``out_dir``, read back with the port's
+    reader, equals its reference frame."""
+    from canny_edge_tpu_torch.io import imageio
+
+    names = sorted(f for f in os.listdir(out_dir) if f.startswith("edges_"))
+    check(names == [f"edges_{i:06d}.png" for i in range(len(refs))],
+          f"{what}: wrote {names[:3]}... ({len(names)}), not {len(refs)}")
+    for i, ref in enumerate(refs):
+        got = imageio.load_grayscale(os.path.join(out_dir, names[i]))
+        check(np.array_equal(got, ref), f"{what}: frame {i} differs")
+
+
+def command_line_phase(dev, time_ms, hw=SIZES["1080p"], hw4k=SIZES["4k"]):
+    """Phase 10: the command-line path at 1080p and 4K (``hw``, ``hw4k``;
+    ``cli.main`` in this process, and one ``python -m
+    canny_edge_tpu_torch.cli``), the stage path and ``SobelTorch`` on the
+    card, and their times.  Returns the report."""
+    import torch
+
+    from canny_edge_tpu_torch import CannyTorch, SobelTorch, cli
+    from canny_edge_tpu_torch.io import imageio
+    from canny_edge_tpu_torch.kernels import frontend as kfe
+    from canny_edge_tpu_torch.kernels import hysteresis_packed as khp
+    from canny_edge_tpu_torch.kernels.hysteresis_packed import \
+        hysteresis_packed_nm
+    from canny_edge_tpu_torch.ops import packed as P
+    from canny_edge_tpu_torch.ops import stages as St
+    from canny_edge_tpu_torch.utils.trace import trace
+
+    rep = {}
+    args = ["1.4", str(MN), str(MX)]
+    model = CannyTorch(SIGMA)
+
+    def refs_of(frames):
+        return [model(f, MN, MX).cpu().numpy().astype(np.uint8)
+                for f in frames]
+
+    def counted(argv):
+        """One run with K1's and K2's counts from 0 and the plain pack and
+        unpack watched: (stats, counts)."""
+        plain = dict(P.calls)
+        kfe.launches = khp.launches = 0
+        stats = run_cli(argv)
+        counts = {"frontend": kfe.launches, "hysteresis_packed": khp.launches}
+        check(P.calls == plain, f"the command line ran a plain pack/unpack: "
+              f"{argv}")
+        return stats, counts
+
+    h, w = hw
+    hd = f"{h}x{w}"
+    frames = [imageio.synthetic_image(h, w, seed=i) for i in range(16)]
+    refs = refs_of(frames)
+    with tempfile.TemporaryDirectory(prefix="canny_cli_") as work:
+        def d(name):
+            return os.path.join(work, name)
+
+        # the stream, 16 frames, batches of 4, and its variants
+        runs = {}
+        stream = [f"synthetic:{hd}x16", *args, "--batch", "4",
+                  "--prefetch", "4", "--json"]
+        for name, extra in (("fused", []), ("packed", ["--packed-transfer"]),
+                            ("pallas", ["--backend", "pallas"])):
+            stats, counts = counted(stream + ["--out-dir", d(name), *extra])
+            check(stats["frames"] == 16 and counts == {
+                "frontend": 16, "hysteresis_packed": 16},
+                f"{name} stream: {stats['frames']} frames, launches {counts}")
+            check_pngs(d(name), refs, f"{name} stream")
+            runs[name] = {"stats": stats, "launches": counts}
+        first, _ = counted([f"synthetic:{hd}x16", *args, "--batch", "4",
+                            "--max-frames", "8", "--resume", "--json",
+                            "--out-dir", d("resume")])
+        stats, counts = counted(stream + ["--resume", "--out-dir",
+                                          d("resume")])
+        check(first["frames"] == 8 and stats["skipped_batches"] == 2
+              and stats["frames"] == 8 and counts["frontend"] == 8
+              and counts["hysteresis_packed"] == 8,
+              f"resume: {first} then {stats}, launches {counts}")
+        check_pngs(d("resume"), refs, "resumed stream")
+        runs["resume"] = {"stats": stats, "launches": counts}
+
+        # 4K
+        frames4k = [imageio.synthetic_image(*hw4k, seed=i) for i in range(4)]
+        stats, counts = counted([f"synthetic:{hw4k[0]}x{hw4k[1]}x4", *args, "--batch",
+                                 "2", "--json", "--out-dir", d("4k")])
+        check(counts == {"frontend": 4, "hysteresis_packed": 4},
+              f"4K stream launches {counts}")
+        check_pngs(d("4k"), refs_of(frames4k), "4K stream")
+        runs["4k"] = {"stats": stats, "launches": counts}
+
+        # the native feeder: a raw8 file and a PGM directory
+        np.stack(frames[:8]).tofile(d("frames.raw"))
+        stats, counts = counted([f"raw8:{d('frames.raw')}:{hd}x8", *args,
+                                 "--batch", "4", "--native-feeder", "--json",
+                                 "--out-dir", d("raw8")])
+        check(counts["frontend"] == 8 and stats["feeder"]["produced"] == 8
+              and stats["feeder"]["read_errors"] == 0,
+              f"raw8: {stats}, launches {counts}")
+        check_pngs(d("raw8"), refs[:8], "raw8 stream")
+        runs["raw8"] = {"stats": stats, "launches": counts}
+        os.makedirs(d("pgm"))
+        for i, f in enumerate(frames[:4]):
+            with open(os.path.join(d("pgm"), f"frame_{i:06d}.pgm"), "wb") as fh:
+                fh.write(imageio.pgm_bytes(f))
+        for name, extra in (("pgm_feeder", ["--native-feeder"]),
+                            ("pgm_python", [])):
+            stats, counts = counted([d("pgm"), *args, "--batch", "2",
+                                     "--json", "--out-dir", d(name), *extra])
+            check(counts["frontend"] == 4 and ("feeder" in stats) == bool(
+                extra), f"{name}: {stats}, launches {counts}")
+            check_pngs(d(name), refs[:4], name)
+            runs[name] = {"stats": stats, "launches": counts}
+
+        # one run as a user starts it
+        t = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "canny_edge_tpu_torch.cli",
+             f"synthetic:{hd}x2", *args, "--json", "--out-dir", d("sub")],
+            capture_output=True, text=True, cwd=ROOT, timeout=600)
+        check(r.returncode == 0, f"python -m canny_edge_tpu_torch.cli exited "
+              f"{r.returncode}: {r.stderr[-2000:]}")
+        check_pngs(d("sub"), refs[:2], "python -m canny_edge_tpu_torch.cli")
+        runs["subprocess"] = {"stats": json.loads(r.stdout.splitlines()[-1]),
+                              "wall_s": time.perf_counter() - t}
+        rep["runs"] = runs
+        log("command line: " + ", ".join(
+            f"{k} {v['stats']['frames']} frames {v.get('launches', '')}"
+            for k, v in runs.items()))
+
+        # the stage path on the card at 1080p
+        img = frames[0]
+        img_t = torch.from_numpy(img).to(dev)
+        edges, inter = model.with_intermediates(img, MN, MX)
+        edges_c, inter_c = CannyTorch(SIGMA, device="cpu").with_intermediates(
+            img, MN, MX)
+        check(torch.equal(inter["nonmax"], kfe.frontend(img_t, model.taps)),
+              "with_intermediates' nonmax differs from K1's NMS map")
+        check(np.array_equal(edges.cpu().numpy().astype(np.uint8), refs[0]),
+              "with_intermediates' edges differ from the fused frame")
+        check(torch.equal(edges.cpu(), edges_c), "stage path: card and CPU "
+              "edges differ")
+        for k in ("smoothed", "magnitude", "angle", "nonmax"):
+            check(inter[k].device == dev and torch.equal(inter[k].cpu(),
+                                                         inter_c[k]),
+                  f"with_intermediates' {k}: card and CPU differ")
+        check(inter["frontier_iterations"] == inter_c["frontier_iterations"],
+              f"frontier iterations: card {inter['frontier_iterations']}, "
+              f"CPU {inter_c['frontier_iterations']}")
+        imageio.save_png(d("in.png"), img)
+        run_cli([d("in.png"), *args, "-s", "-o", d("s_edges.png"),
+                 "--out-dir", d("steps"), "--json"])
+        check(np.array_equal(imageio.load_grayscale(d("s_edges.png")),
+                             refs[0]), "-s: the edge image differs")
+        for k in ("smoothed", "magnitude", "nonmax"):
+            got = imageio.load_grayscale(os.path.join(d("steps"),
+                                                      f"step_{k}.png"))
+            check(np.array_equal(got, imageio.minmax_normalize_u8(
+                inter_c[k].numpy())), f"-s: step_{k}.png differs")
+        sob, sob_c = SobelTorch(SIGMA), SobelTorch(SIGMA, device="cpu")
+        pair = np.stack(frames[:2])
+        check(torch.equal(sob(img, 80).cpu(), sob_c(img, 80))
+              and torch.equal(sob.magnitude(img).cpu(), sob_c.magnitude(img))
+              and torch.equal(sob.batch(pair, 80).cpu(), sob_c.batch(pair, 80)),
+              "SobelTorch: card and CPU differ")
+        rep["frontier_iterations"] = inter["frontier_iterations"]
+        log("stage path and SobelTorch on the card equal the CPU")
+
+        # --time: the stage table at 1080p
+        err = io.StringIO()
+        stats = run_cli([f"synthetic:{hd}x1", *args, "--time", "--json",
+                         "--out-dir", d("time")], stderr=err)
+        table = [ln for ln in err.getvalue().splitlines()
+                 if ln.split()[:1] and ln.split()[0] in (
+                     "stage", "gaussian", "sobel", "nms", "hysteresis",
+                     "TOTAL")]
+        check(len(table) == 6 and "[slope]" in table[0]
+              and stats["stages"]["protocol"] == "slope",
+              f"--time printed {err.getvalue()[-500:]}")
+        rep["stages_1080p"] = stats["stages"]
+
+        # times: the stream by wall clock, and the same without the model
+        big = [f"synthetic:{hd}x64", *args, "--batch", "8", "--json"]
+        t = time.perf_counter()
+        stats = run_cli(big + ["--out-dir", d("big")])
+        wall = time.perf_counter() - t
+        edges8 = model.batch(np.stack(frames[:8]), MN, MX)
+        make_run_batch = cli._make_run_batch
+        cli._make_run_batch = lambda cfg, device: (lambda b: edges8, None)
+        t = time.perf_counter()
+        bare = run_cli(big + ["--out-dir", d("bare")])
+        bare_wall = time.perf_counter() - t
+        cli._make_run_batch = make_run_batch
+
+        # the stream of ready frames: 64 from a raw8 file (8 frames over
+        # again) through the feeder, three times by wall clock, then once
+        # traced for the time the card was busy
+        np.tile(np.stack(frames[:8]), (8, 1, 1)).tofile(d("ready.raw"))
+        ready = [f"raw8:{d('ready.raw')}:{hd}x64", *args, "--batch", "8",
+                 "--native-feeder", "--json"]
+        ready_runs = [run_cli(ready + ["--out-dir", d(f"ready{i}")])
+                      for i in range(3)]
+        kfe.launches = khp.launches = 0
+        with trace(d("trace")):
+            traced = run_cli(ready + ["--out-dir", d("ready_traced")])
+        check(kfe.launches == 64 and khp.launches == 64,
+              f"traced ready stream: launches {kfe.launches}, "
+              f"{khp.launches}")
+        check_pngs(d("ready_traced"), refs[:8] * 8, "traced ready stream")
+        busy = device_busy_s(os.path.join(d("trace"), "trace.json"))
+        pixels = h * w
+        kern = model.kernel
+
+        def stage_prefix():
+            sm = St._gaussian_blur_with_kernel(img_t, kern)
+            return hysteresis_packed_nm(St.nonmax_suppression(*St.sobel(sm)),
+                                        MN, MX)
+
+        rep["times"] = {
+            "stream_64x1080p_b8": {
+                "fps": stats["fps"], "mp_per_s": stats["mp_per_s"],
+                "stream_s": stats["seconds"], "wall_s": wall},
+            "stream_without_model": {
+                "fps": bare["fps"], "stream_s": bare["seconds"],
+                "wall_s": bare_wall},
+            # not a share: at >= 1 the model is lost in the host's noise
+            "without_model_ratio": bare["seconds"] / stats["seconds"],
+            "ready_64x1080p_b8": {
+                "fps": [r["fps"] for r in ready_runs],
+                "mp_per_s": [r["mp_per_s"] for r in ready_runs],
+                "stream_s": [r["seconds"] for r in ready_runs]},
+            "ready_traced": {
+                "fps": traced["fps"], "stream_s": traced["seconds"],
+                "device_busy_s": busy,
+                "idle_share": (None if busy is None
+                               else 1 - busy / traced["seconds"])},
+            "with_intermediates_ms": time_ms(
+                lambda: model.with_intermediates(img_t, MN, MX), 3, 3),
+            "stage_prefix_ms": time_ms(stage_prefix, 10, 3),
+            "sobel_ms": time_ms(lambda: sob(img_t, 80), 10, 3),
+            "sobel_magnitude_ms": time_ms(lambda: sob.magnitude(img_t), 10, 3),
+            "fused_frame_ms": time_ms(lambda: model(img_t, MN, MX), 20, 3),
+        }
+    tm = rep["times"]
+    tm["stage_path_s_per_px"] = tm["stage_prefix_ms"] / 1e3 / pixels
+    print(f"command line, 64 frames 1080p, batch 8: "
+          f"{tm['stream_64x1080p_b8']['fps']} frames/s, "
+          f"{tm['stream_64x1080p_b8']['mp_per_s']} MP/s (stream "
+          f"{tm['stream_64x1080p_b8']['stream_s']} s, wall "
+          f"{wall:.3f} s); without the model {bare['seconds']} s: ratio "
+          f"{tm['without_model_ratio']:.3f}"
+          + (" (>= 1: the model is lost in the host's noise, uninformative)"
+             if tm["without_model_ratio"] >= 1 else ""), flush=True)
+    rd, tr = tm["ready_64x1080p_b8"], tm["ready_traced"]
+    idle = ("not measured (no device event in the trace)"
+            if tr["idle_share"] is None else f"{tr['idle_share']:.4f}")
+    print(f"command line, 64 ready frames 1080p (raw8, feeder), batch 8: "
+          f"{rd['fps']} frames/s, {rd['mp_per_s']} MP/s; traced "
+          f"{tr['fps']} frames/s, card busy {tr['device_busy_s']} s of "
+          f"{tr['stream_s']} s: idle share {idle}", flush=True)
+    print("stage table, 1080p:", flush=True)
+    for ln in table:
+        print("  " + ln, flush=True)
+    print(f"per 1080p frame: with_intermediates {tm['with_intermediates_ms']:.3f}"
+          f" ms ({rep['frontier_iterations']} dilations), stage prefix "
+          f"{tm['stage_prefix_ms']:.3f} ms ({tm['stage_path_s_per_px']:.3e} "
+          f"s/px), SobelTorch {tm['sobel_ms']:.3f} ms, fused frame "
+          f"{tm['fused_frame_ms']:.4f} ms", flush=True)
+    return rep
+
+
 def main():
     import torch
 
     check(torch.cuda.is_available(), "no CUDA device")
     t_run = time.perf_counter()
-    from canny_edge_tpu_torch import CannyTorch
+    from canny_edge_tpu_torch import CannyTorch, runtime
     from canny_edge_tpu_torch.kernels import _build
     from canny_edge_tpu_torch.kernels import frontend as kfe
     from canny_edge_tpu_torch.kernels import hysteresis as k3
@@ -177,11 +503,15 @@ def main():
     report["card"] = card
     report["torch"] = f"{torch.__version__} cuda {torch.version.cuda}"
 
-    # ---- 2. build ----
+    # ---- 2. build (the native feeder with g++ beside the kernels) ----
     t0 = time.perf_counter()
-    built = _build.build_all()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        feeder_build = pool.submit(runtime.build)
+        built = _build.build_all()
+        feeder_lib = feeder_build.result()
     report["build_s"] = time.perf_counter() - t0
-    log(f"build: {report['build_s']:.1f}s {built}")
+    check(runtime.available(), f"the native feeder does not load: {feeder_lib}")
+    log(f"build: {report['build_s']:.1f}s {built}, feeder {feeder_lib.name}")
     print(f"build seconds: {report['build_s']:.1f}", flush=True)
 
     def sync():
@@ -786,6 +1116,11 @@ def main():
                   f"{kern.__name__} differs on {tuple(nm.shape)} {kw} with "
                   f"footprints alternating")
     report["times_s"] = time.perf_counter() - t0
+
+    # ---- 10. the command-line path ----
+    t0 = time.perf_counter()
+    report["cli_path"] = command_line_phase(dev, time_ms)
+    report["cli_path"]["s"] = time.perf_counter() - t0
 
     t1 = times["1080p"]
     kernels = [

@@ -159,7 +159,15 @@ def test_import_loads_no_jax():
             "canny_edge_tpu_torch.kernels.hysteresis_v2, "
             "canny_edge_tpu_torch.kernels.fused, canny_edge_tpu_torch.ops."
             "dilate, canny_edge_tpu_torch.ops.banded, "
-            "canny_edge_tpu_torch.ops.packed_tiles; "
+            "canny_edge_tpu_torch.ops.packed_tiles, canny_edge_tpu_torch.cli, "
+            "canny_edge_tpu_torch.config, canny_edge_tpu_torch.io, "
+            "canny_edge_tpu_torch.io.imageio, canny_edge_tpu_torch.io.video, "
+            "canny_edge_tpu_torch.runtime, "
+            "canny_edge_tpu_torch.parallel.streaming, "
+            "canny_edge_tpu_torch.utils.timing, "
+            "canny_edge_tpu_torch.utils.trace, "
+            "canny_edge_tpu_torch.ops.stages, "
+            "canny_edge_tpu_torch.models.sobel; "
             "bad = [m for m in set(sys.modules) - before if m.split('.')[0] "
             "in ('jax', 'jaxlib', 'canny_edge_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
