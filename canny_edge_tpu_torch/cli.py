@@ -8,8 +8,10 @@ compute; each frame runs through the model (default ``fused``: K1 then K2)
 and is written as a PNG; a cursor allows a resume; ``-s`` writes the stage
 images and ``--time`` prints a table of the stages.  ``--device cpu`` runs
 the plain PyTorch versions; without a card and without it the command exits
-with an error.  The ``sharded`` backend and ``--mesh`` need the multi-device
-path, which the port does not have yet.
+with an error (``golden`` always runs on the CPU).  ``--backend sharded``
+runs :class:`.parallel.ShardedCanny` over a ``--mesh DATAxYxX`` of this
+process's device (one block by default; a mesh of more blocks than devices
+is refused, as JAX's ``make_mesh`` refuses it).
 
 Examples::
 
@@ -27,11 +29,6 @@ import sys
 import time
 
 import numpy as np
-
-MULTI_DEVICE = ("ERROR: the sharded backend and --mesh need the multi-device "
-                "path, which the port does not have yet (ROADMAP.md, section "
-                "A, 'Multi-device path')")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -70,7 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="frames per device batch")
     p.add_argument("--max-frames", type=int, default=None)
     p.add_argument("--mesh", default=None,
-                   help="sharded mesh as DATAxYxX (not in the port yet)")
+                   help="sharded mesh as DATAxYxX, e.g. 1x2x4")
     p.add_argument("--prefetch", type=int, default=2,
                    help="device prefetch depth: batches staged onto the "
                         "device ahead of compute")
@@ -107,8 +104,6 @@ def validate_args(args) -> None:
     if args.packed_transfer and args.backend in ("golden", "sharded"):
         raise SystemExit("ERROR: --packed-transfer uses the single-chip "
                          "packed engines; use backend fused, xla, or pallas")
-    if args.backend == "sharded" or args.mesh:
-        raise SystemExit(MULTI_DEVICE)
 
 
 def open_frames(args, feeder_stats: dict | None = None):
@@ -176,20 +171,24 @@ def build_config(args):
     """The one config object, built from argv."""
     from .config import CannyConfig
 
+    mesh_d = mesh_y = mesh_x = 1
+    if args.mesh:
+        mesh_d, mesh_y, mesh_x = (int(v) for v in args.mesh.split("x"))
     cursor_path = (os.path.join(args.out_dir, ".canny_cursor.json")
                    if args.resume else None)
     try:
         return CannyConfig(
             sigma=args.sigma, min_val=args.min_val, max_val=args.max_val,
             backend=args.backend, hysteresis_mode=args.hysteresis,
-            batch_size=args.batch, prefetch_depth=args.prefetch,
+            batch_size=args.batch, mesh_data=mesh_d, mesh_y=mesh_y,
+            mesh_x=mesh_x, prefetch_depth=args.prefetch,
             checkpoint_path=cursor_path,
             packed_transfer=args.packed_transfer)
     except ValueError as e:
         raise SystemExit(f"ERROR: {e}")
 
 
-def _make_run_batch(cfg, device):
+def _make_run_batch(cfg, device, first_frame):
     """``(run_batch, device_put)`` for the StreamingRunner; a ``device_put``
     of None stages batches onto ``device``."""
     if cfg.backend == "golden":
@@ -208,6 +207,26 @@ def _make_run_batch(cfg, device):
             return np.stack(outs)
 
         return run_batch, lambda b: b
+    if cfg.backend == "sharded":
+        from .parallel import ShardedCanny, make_mesh
+
+        devices = [device]            # the process's one device, as JAX's
+        try:
+            if (cfg.mesh_data, cfg.mesh_y, cfg.mesh_x) != (1, 1, 1):
+                mesh = make_mesh(devices, data=cfg.mesh_data, y=cfg.mesh_y,
+                                 x=cfg.mesh_x)
+            else:
+                mesh = make_mesh(devices)
+        except ValueError as e:
+            raise SystemExit(f"ERROR: {e}")
+        ndata = mesh.shape["data"]
+        if cfg.batch_size % ndata:
+            raise SystemExit(f"ERROR: --batch {cfg.batch_size} must be a "
+                             f"multiple of the mesh data axis ({ndata})")
+        model = ShardedCanny(mesh, cfg.sigma, first_frame.shape,
+                             hysteresis_mode=cfg.hysteresis_mode)
+        return (lambda b: model(b, cfg.min_val, cfg.max_val),
+                model.shard_batch)
     from .models import CannyTorch
 
     model = CannyTorch(sigma=cfg.sigma, backend=cfg.backend,
@@ -237,7 +256,9 @@ def main(argv=None) -> int:
     from .kernels.fused import resolve_device
 
     try:            # without a card: the model's message, no silent CPU run
-        device = resolve_device(args.device)
+        # golden is the stage path on the CPU, whatever --device says
+        device = resolve_device("cpu" if args.backend == "golden"
+                                else args.device)
     except RuntimeError as e:
         raise SystemExit(f"ERROR: {e}")
 
@@ -254,7 +275,7 @@ def main(argv=None) -> int:
         raise SystemExit("ERROR: input source produced no frames")
     frames = _chain_first(first, frames)
 
-    run_batch, device_put = _make_run_batch(cfg, device)
+    run_batch, device_put = _make_run_batch(cfg, device, first)
 
     single_image = (os.path.splitext(args.input)[1].lower()
                     in video.IMAGE_EXTS and args.output)

@@ -5,8 +5,7 @@ messages and backend names.
 It replaces the reference's compile-time constants and positional argv
 (#define WIDTH/HEIGHT src/main.cpp:12-13, NUM_BLOCKS/BLOCK_SIZE
 src/cuda.cu:9-10, ENABLE_CUDA CMakeLists.txt:4-8), validated as the
-reference's CLI validates (src/main.cpp:63-76).  The port runs no
-``sharded`` backend and no mesh yet: the command line refuses them.
+reference's CLI validates (src/main.cpp:63-76).
 """
 
 from __future__ import annotations

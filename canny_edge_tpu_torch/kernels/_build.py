@@ -34,11 +34,13 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
 SIGNATURES = {
     "frontend": {
         "canny_frontend": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+        "canny_frontend_block": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I,
+                                 _I, _I, _P, _P, _P, _P],
         "canny_frontend_max_window": [],
     },
     "hysteresis_packed": {
         "canny_hysteresis_packed": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I,
-                                    _I, _P, _L, _P],
+                                    _I, _I, _I, _P, _L, _P],
         "canny_hysteresis_packed_scratch_words": [_I, _I],
     },
     "hysteresis_dilate": {

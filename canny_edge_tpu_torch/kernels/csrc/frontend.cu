@@ -4,7 +4,8 @@
 // Replaces the Pallas front-end kernels of canny_edge_tpu/kernels/frontend.py
 // (the element-indexed `kern` with its border strips, and `_frontend_kernel`)
 // and the fused threshold/pack tail of ops/window.py:frontend_nm_static,
-// which on the TPU ran in XLA.  Plain version: ops/window.py:frontend_nm.
+// which on the TPU ran in XLA.  Plain versions: ops/window.py:frontend_nm
+// (a whole image) and ops/window.py:frontend_block (block mode).
 //
 // Bound: at 1080p the kernel reads 2.07 MB and writes 0.52 MB (packed), under
 // 1 us of HBM time, while the separable blur, Sobel, integer square root and
@@ -18,8 +19,10 @@
 //           off the image; 16-byte cp.async where the row address allows
 //           (W a multiple of 16, chunk inside the image), else byte loads;
 //   x-pass  the window is a template parameter (3..15; one generic
-//           instantiation takes any odd window up to 31, chosen by the
-//           window alone).  A thread loads its row segment as 32-bit words,
+//           instantiation takes any other odd window, its halo, shared tile
+//           and divisor buffer sized from the window at launch, up to what
+//           a block's shared memory holds).  A thread loads its row segment
+//           as 32-bit words,
 //           converts each byte once and emits 8 adjacent outputs from a
 //           register window, taps in registers, fully unrolled;
 //   y-pass  a thread emits 4 outputs down a column from window + 3 floats
@@ -41,6 +44,15 @@
 // neighbourhood lies inside the image (a block-uniform test) skip the
 // clamp/drop border rules of the gradient; the others keep them per pixel.
 //
+// Block mode: the input may be a window of a larger image, a block of
+// (OH, OW) output pixels with a margin of `halo` texels around it, whose
+// output pixel (0, 0) is pixel (row0, col0) of an (H, W) image.  Loads,
+// divisors, the Sobel border rules, NMS's off-image neighbours and the
+// masks all read global coordinates; window texels past the image are read
+// as 0 and output pixels past it are 0 in the map and clear in the masks.
+// The whole image is the case halo = 0, (row0, col0) = (0, 0), (OH, OW) =
+// (H, W): one kernel body for both.
+//
 // Exactness: every product and sum is rounded on its own (__fmul_rn,
 // __fadd_rn, and the build passes --fmad=false), taps accumulate in
 // ascending order, the renormalization divide is __fdiv_rn, and the back
@@ -53,12 +65,13 @@
 #include <cuda_runtime.h>
 #include <type_traits>
 
+#include "masks.cuh"
+
 namespace {
 
 constexpr int TILE_H = 64;
 constexpr int TILE_W = 64;
 constexpr int THREADS = 256;
-constexpr int MAX_WINDOW = 31;
 constexpr int XR = 8;                // x-pass outputs a thread
 constexpr int YR = 4;                // y-pass outputs a thread
 constexpr int XW = TILE_W + 8;       // x-pass columns [col0 - 4, col0 + 68)
@@ -69,25 +82,32 @@ constexpr int MAG_OOB = -4;          // off-image magnitude: -1 with direction 0
 
 static_assert(XW % XR == 0 && SM_H % YR == 0 && MAG_W % 4 == 0, "geometry");
 
-// WINDOW > 0: that window, unrolled; WINDOW == 0: any odd window up to
-// MAX_WINDOW, sized for the largest
-template <int WINDOW>
+// The shared-memory layout of a window: its half-width c, the input tile with
+// its halo, the x-pass buffer (the magnitudes reuse it), the blurred tile and
+// the divisors and taps.
 struct Geo {
-  static constexpr int CMAX = (WINDOW > 0 ? WINDOW : MAX_WINDOW) / 2;
-  // the shared tile starts ORG columns left of the output tile: a multiple
-  // of 16, so a 16-byte chunk of the tile is a 16-byte chunk of the image row
-  static constexpr int ORG = (4 + CMAX <= 16) ? 16 : 32;
-  static constexpr int IN_W = (ORG + TILE_W + 4 + CMAX + 15) / 16 * 16;
-  static constexpr int IN_H = SM_H + 2 * CMAX;
-  static constexpr int IN_BYTES = IN_H * IN_W;
-  static constexpr int TMP_BYTES = IN_H * XW * 4;     // the magnitudes reuse it
-  static constexpr int SM_BYTES = SM_H * XW * 4;
-  static constexpr int CNT_BYTES = (XW + SM_H + MAX_WINDOW + 1) * 4;
-  static constexpr int BYTES = IN_BYTES + TMP_BYTES + SM_BYTES + CNT_BYTES;
-  static_assert(TMP_BYTES >= MAG_H * MAG_W * 2, "magnitudes fit the x-pass buffer");
-  static_assert(IN_BYTES % 16 == 0 && TMP_BYTES % 16 == 0 && SM_BYTES % 16 == 0,
-                "16-byte aligned sections");
+  int c, org, in_w, in_h, in_bytes, tmp_bytes, sm_bytes, bytes;
 };
+
+__host__ __device__ constexpr Geo geo_of(int window) {
+  const int c = window / 2;
+  // the shared tile starts `org` columns left of the output tile: a multiple
+  // of 16, so a 16-byte chunk of the tile is a 16-byte chunk of the image row
+  const int org = 4 + c <= 16 ? 16 : (4 + c + 15) / 16 * 16;
+  const int in_w = (org + TILE_W + 4 + c + 15) / 16 * 16;
+  const int in_h = SM_H + 2 * c;
+  const int in_bytes = in_h * in_w;
+  const int tmp_bytes = in_h * XW * 4;
+  const int sm_bytes = SM_H * XW * 4;
+  const int cnt_bytes = (XW + SM_H + window + 3) / 4 * 16;
+  return Geo{c, org, in_w, in_h, in_bytes, tmp_bytes, sm_bytes,
+             in_bytes + tmp_bytes + sm_bytes + cnt_bytes};
+}
+
+static_assert(geo_of(3).tmp_bytes >= MAG_H * MAG_W * 2,
+              "magnitudes fit the x-pass buffer");
+static_assert(geo_of(3).in_bytes % 16 == 0 && geo_of(3).tmp_bytes % 16 == 0 &&
+              geo_of(3).sm_bytes % 16 == 0, "16-byte aligned sections");
 
 constexpr float TWO23 = 8388608.0f;
 
@@ -117,29 +137,39 @@ __device__ __forceinline__ int mag_dir(float gx, float gy) {
   return (m << 2) | dir;
 }
 
+// Where the kernel reads and writes: the input window (sh, sw) whose texel
+// (halo, halo) is output pixel (0, 0), the (oh, ow) output block, and the
+// block's place (row0, col0) in the (H, W) image.
+struct Frame {
+  const uint8_t* src;
+  int sh, sw, halo, oh, ow, row0, col0, H, W;
+};
+
 template <int WINDOW>
 __global__ void __launch_bounds__(THREADS, 4)
-frontend_kernel(const uint8_t* __restrict__ img, int H, int W,
-                const float* __restrict__ taps, int window_rt, int packed,
-                int mn, int mx, int vec_ok, int16_t* __restrict__ nm_out,
-                uint32_t* __restrict__ weak, uint32_t* __restrict__ strong) {
-  using G = Geo<WINDOW>;
+frontend_kernel(Frame f, const float* __restrict__ taps, int window_rt,
+                int packed, int mn, int mx, int vec_ok,
+                int16_t* __restrict__ nm_out, uint32_t* __restrict__ weak,
+                uint32_t* __restrict__ strong) {
+  const int window = WINDOW > 0 ? WINDOW : window_rt;
+  const Geo G = geo_of(window);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint8_t* in = smem_raw;
-  float* tmp = reinterpret_cast<float*>(smem_raw + G::IN_BYTES);
+  float* tmp = reinterpret_cast<float*>(smem_raw + G.in_bytes);
   int16_t* mag = reinterpret_cast<int16_t*>(tmp);
-  float* sm = reinterpret_cast<float*>(smem_raw + G::IN_BYTES + G::TMP_BYTES);
-  float* cnt_x = reinterpret_cast<float*>(smem_raw + G::IN_BYTES + G::TMP_BYTES
-                                          + G::SM_BYTES);
+  float* sm = reinterpret_cast<float*>(smem_raw + G.in_bytes + G.tmp_bytes);
+  float* cnt_x = reinterpret_cast<float*>(smem_raw + G.in_bytes + G.tmp_bytes
+                                          + G.sm_bytes);
   float* cnt_y = cnt_x + XW;           // contiguous with cnt_x
   float* k_s = cnt_y + SM_H;           // the generic window's taps
 
-  const int window = WINDOW > 0 ? WINDOW : window_rt;
-  const int c = window / 2;
-  const int in_h = SM_H + 2 * c;       // rows [row0 - 2 - c, row0 + 66 + c)
-  const int xoff = G::ORG - 4 - c;     // tile column of x-pass output 0, tap 0
-  const int row0 = blockIdx.y * TILE_H;
-  const int col0 = blockIdx.x * TILE_W;
+  const int H = f.H, W = f.W;
+  const int c = G.c;
+  const int in_h = G.in_h;             // rows [row0 - 2 - c, row0 + 66 + c)
+  const int xoff = G.org - 4 - c;      // tile column of x-pass output 0, tap 0
+  // the tile's first output pixel, in the block and in the image
+  const int ty0 = blockIdx.y * TILE_H, tx0 = blockIdx.x * TILE_W;
+  const int row0 = f.row0 + ty0, col0 = f.col0 + tx0;
   const int tid = threadIdx.x;
 
   float k[WINDOW > 0 ? WINDOW : 1];
@@ -148,28 +178,32 @@ frontend_kernel(const uint8_t* __restrict__ img, int H, int W,
     for (int t = 0; t < WINDOW; ++t) k[t] = __ldg(taps + t);
   } else {
     k[0] = 0.0f;
-    if (tid < window) k_s[tid] = taps[tid];
+    for (int t = tid; t < window; t += THREADS) k_s[t] = taps[t];
   }
 
-  // ---- load: the zero-padded uint8 tile with its halo, 16 bytes a thread ----
+  // ---- load: the zero-padded uint8 tile with its halo, 16 bytes a thread;
+  //      a texel is read where it lies in the window and in the image ----
   {
-    constexpr int CH = G::IN_W / 16;
-    const int grow0 = row0 - 2 - c, gcol0 = col0 - G::ORG;
-    for (int i = tid; i < in_h * CH; i += THREADS) {
-      const int y = i / CH, q = i % CH;
-      const int gr = grow0 + y, gc = gcol0 + 16 * q;
-      uint8_t* dst = in + y * G::IN_W + 16 * q;
-      const bool row_in = gr >= 0 && gr < H;
-      if (vec_ok && row_in && gc >= 0 && gc + 16 <= W) {
-        __pipeline_memcpy_async(dst, img + (size_t)gr * W + gc, 16);
+    const int ch = G.in_w / 16;
+    // window row / column of shared row 0 / column 0
+    const int wr0 = ty0 - 2 - c + f.halo, wc0 = tx0 - G.org + f.halo;
+    for (int i = tid; i < in_h * ch; i += THREADS) {
+      const int y = i / ch, q = i % ch;
+      const int wr = wr0 + y, wc = wc0 + 16 * q;
+      const int gr = row0 - 2 - c + y, gc = col0 - G.org + 16 * q;
+      uint8_t* dst = in + y * G.in_w + 16 * q;
+      const bool row_in = wr >= 0 && wr < f.sh && gr >= 0 && gr < H;
+      if (vec_ok && row_in && wc >= 0 && wc + 16 <= f.sw && gc >= 0
+          && gc + 16 <= W) {
+        __pipeline_memcpy_async(dst, f.src + (size_t)wr * f.sw + wc, 16);
       } else {
         uint32_t wds[4] = {0u, 0u, 0u, 0u};
         if (row_in) {
-          const uint8_t* src = img + (size_t)gr * W;
+          const uint8_t* src = f.src + (size_t)wr * f.sw;
 #pragma unroll
           for (int b = 0; b < 16; ++b) {
-            const int cc = gc + b;
-            if (cc >= 0 && cc < W)
+            const int cc = wc + b, gcc = gc + b;
+            if (cc >= 0 && cc < f.sw && gcc >= 0 && gcc < W)
               wds[b >> 2] |= (uint32_t)src[cc] << (8 * (b & 3));
           }
         }
@@ -190,13 +224,17 @@ frontend_kernel(const uint8_t* __restrict__ img, int H, int W,
     float s = 1.0f;
     if (g >= 0 && g < n) {
       s = 0.0f;
+      if constexpr (WINDOW > 0) {
 #pragma unroll
-      for (int t = 0; t < (WINDOW > 0 ? WINDOW : MAX_WINDOW); ++t) {
-        const int q = g + t - c;
-        float kt;
-        if constexpr (WINDOW > 0) kt = k[t];
-        else kt = k_s[t];
-        if (t < window && q >= 0 && q < n) s = __fadd_rn(s, kt);
+        for (int t = 0; t < WINDOW; ++t) {
+          const int q = g + t - c;
+          if (q >= 0 && q < n) s = __fadd_rn(s, k[t]);
+        }
+      } else {
+        for (int t = 0; t < window; ++t) {
+          const int q = g + t - c;
+          if (q >= 0 && q < n) s = __fadd_rn(s, k_s[t]);
+        }
       }
     }
     cnt_x[j] = s;
@@ -210,12 +248,13 @@ frontend_kernel(const uint8_t* __restrict__ img, int H, int W,
 #pragma unroll
     for (int j = 0; j < XR; ++j) acc[j] = 0.0f;
     if constexpr (WINDOW > 0) {
-      constexpr int XOFF = G::ORG - 4 - WINDOW / 2;
+      constexpr Geo GC = geo_of(WINDOW);
+      constexpr int XOFF = GC.org - 4 - WINDOW / 2;
       constexpr int S = XOFF & 3;              // first byte within its word
       constexpr int NV = XR + WINDOW - 1;
       constexpr int NW = (S + NV + 3) / 4;
       const uint32_t* src = reinterpret_cast<const uint32_t*>(in)
-                            + y * (G::IN_W / 4) + (XOFF >> 2) + g * (XR / 4);
+                            + y * (GC.in_w / 4) + (XOFF >> 2) + g * (XR / 4);
       uint32_t wv[NW];
 #pragma unroll
       for (int m = 0; m < NW; ++m) wv[m] = src[m];
@@ -229,7 +268,7 @@ frontend_kernel(const uint8_t* __restrict__ img, int H, int W,
         for (int j = 0; j < XR; ++j)
           acc[j] = __fadd_rn(acc[j], __fmul_rn(v[j + t], k[t]));
     } else {
-      const uint8_t* src = in + y * G::IN_W + xoff + g * XR;
+      const uint8_t* src = in + y * G.in_w + xoff + g * XR;
       for (int t = 0; t < window; ++t) {
         const float kt = k_s[t];
 #pragma unroll
@@ -341,17 +380,20 @@ frontend_kernel(const uint8_t* __restrict__ img, int H, int W,
   else mag_stage(std::false_type{});
   __syncthreads();
 
-  // ---- NMS + output: warp w walks 16 rows of one 32-column word ----
+  // ---- NMS + output: warp w walks 16 rows of one 32-column word of the
+  //      block; pixels past the image are 0 and clear ----
   {
     constexpr int ROWS = TILE_H / (THREADS / 64);
     const int lane = tid & 31, warp = tid >> 5;
-    const int wd = (W + 31) / 32;
+    const int wd = (f.ow + 31) / 32;
     const int x = (warp & 1) * 32 + lane;
     const int y0 = (warp >> 1) * ROWS;
-    const int gc = col0 + x;
-    const int word = (col0 >> 5) + (warp & 1);
-    const bool col_in = gc < W;
-    const int rows = min(ROWS, H - (row0 + y0));       // warp-uniform
+    const int lc = tx0 + x;                            // column in the block
+    const int word = (tx0 >> 5) + (warp & 1);
+    const bool col_out = lc < f.ow;
+    const bool col_in = col_out && col0 + x < W;
+    const int rows = min(ROWS, f.oh - (ty0 + y0));     // warp-uniform
+    const int img_rows = H - (row0 + y0);              // rows in the image
     const int mn4 = 4 * mn, mx4 = 4 * mx;
     const bool writer = lane == 0 && word < wd;
     const int16_t* p = mag + (y0 + 1) * MAG_W + x + 3;
@@ -359,8 +401,8 @@ frontend_kernel(const uint8_t* __restrict__ img, int H, int W,
     constexpr uint32_t OFFS = (uint32_t)MAG_W | (1u << 8)
                               | ((uint32_t)(MAG_W - 1) << 16)
                               | ((uint32_t)(MAG_W + 1) << 24);
-    const size_t o = packed ? (size_t)(row0 + y0) * wd + word
-                            : (size_t)(row0 + y0) * W + gc;
+    const size_t o = packed ? (size_t)(ty0 + y0) * wd + word
+                            : (size_t)(ty0 + y0) * f.ow + lc;
     uint32_t* wp = weak + o;
     uint32_t* sp = strong + o;
     int16_t* np = nm_out + o;
@@ -369,13 +411,15 @@ frontend_kernel(const uint8_t* __restrict__ img, int H, int W,
       const int v0 = p[0];
       const int off = (int)((OFFS >> (8 * (v0 & 3))) & 0xffu);
       // with v = 4 m + d and d < 4: m0 > m  <=>  4 m0 > v.  Off-image
-      // neighbours read -4 and never suppress; ties suppress
+      // neighbours read -4 and never suppress; ties suppress; an off-image
+      // pixel reads -4 itself and is never kept
       const bool keep = (v0 & ~3) > max((int)p[-off], (int)p[off]);
       // the kept value, 4 m0 + d, or 0: m0 >= t  <=>  4 m0 + d >= 4 t
       const int vk = keep ? v0 : 0;
       if (packed) {
-        const unsigned bw = __ballot_sync(0xffffffffu, col_in && vk >= mn4);
-        const unsigned bs = __ballot_sync(0xffffffffu, col_in && vk >= mx4);
+        const bool in = col_in && y < img_rows;
+        const unsigned bw = __ballot_sync(0xffffffffu, in && vk >= mn4);
+        const unsigned bs = __ballot_sync(0xffffffffu, in && vk >= mx4);
         if (writer) {
           *wp = bw;
           *sp = bs;
@@ -383,59 +427,59 @@ frontend_kernel(const uint8_t* __restrict__ img, int H, int W,
         wp += wd;
         sp += wd;
       } else {
-        if (col_in) *np = (int16_t)(vk >> 2);
-        np += W;
+        if (col_out) *np = (int16_t)(vk >> 2);
+        np += f.ow;
       }
     }
   }
 }
 
+// the shared memory a block of this window needs
+int smem_bytes(int window) { return geo_of(window).bytes; }
+
 template <int WINDOW>
-cudaError_t launch(const uint8_t* img, int H, int W, const float* taps,
-                   int window, int packed, int mn, int mx, int16_t* nm_out,
-                   uint32_t* weak, uint32_t* strong, cudaStream_t stream) {
-  constexpr int bytes = Geo<WINDOW>::BYTES;
-  if (bytes > 48 * 1024) {       // opt in once per device and instantiation
+cudaError_t launch(const Frame& f, const float* taps, int window, int packed,
+                   int mn, int mx, int16_t* nm_out, uint32_t* weak,
+                   uint32_t* strong, cudaStream_t stream) {
+  const int bytes = smem_bytes(window);
+  if (bytes > 48 * 1024) {
+    // once per device and instantiation, and always to the device's limit
+    // (one value a kernel, whatever the window): windows may alternate
     static bool opted_in[64];
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return e;
     if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+    const int limit = masks::smem_optin_limit();
+    if (bytes > limit) return cudaErrorInvalidValue;
     if (!opted_in[dev]) {
       e = cudaFuncSetAttribute(frontend_kernel<WINDOW>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
+                               limit);
       if (e != cudaSuccess) return e;
       opted_in[dev] = true;
     }
   }
-  const int vec_ok = W % 16 == 0 && reinterpret_cast<uintptr_t>(img) % 16 == 0;
-  const dim3 grid((W + TILE_W - 1) / TILE_W, (H + TILE_H - 1) / TILE_H);
+  // 16-byte loads: every window row and the tile's first column start on a
+  // 16-byte boundary
+  const int vec_ok = f.sw % 16 == 0 && f.halo % 16 == 0
+                     && reinterpret_cast<uintptr_t>(f.src) % 16 == 0;
+  const dim3 grid((f.ow + TILE_W - 1) / TILE_W, (f.oh + TILE_H - 1) / TILE_H);
   frontend_kernel<WINDOW><<<grid, THREADS, bytes, stream>>>(
-      img, H, W, taps, window, packed, mn, mx, vec_ok, nm_out, weak, strong);
+      f, taps, window, packed, mn, mx, vec_ok, nm_out, weak, strong);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-int canny_frontend_max_window() { return MAX_WINDOW; }
-
-// img: uint8 (H, W); taps: float32 (window); packed == 0 -> nm_out int16
-// (H, W); packed != 0 -> weak/strong uint32 (H, ceil(W/32)).  Launches on
-// `stream` and returns cudaGetLastError().  Windows 3..15 run their own
-// unrolled instantiation, every other odd window the generic one.
-int canny_frontend(const void* img, int H, int W, const void* taps, int window,
-                   int packed, int mn, int mx, void* nm_out, void* weak,
-                   void* strong, void* stream) {
-  if (H <= 0 || W <= 0 || window < 1 || window > MAX_WINDOW || window % 2 == 0)
+int run(const Frame& f, const void* taps, int window, int packed, int mn,
+        int mx, void* nm_out, void* weak, void* strong, void* stream) {
+  if (f.oh <= 0 || f.ow <= 0 || f.H <= 0 || f.W <= 0 || f.halo < 0
+      || f.sh != f.oh + 2 * f.halo || f.sw != f.ow + 2 * f.halo
+      || window < 1 || window % 2 == 0)
     return (int)cudaErrorInvalidValue;
 #define CANNY_FRONTEND_LAUNCH(WIN)                                            \
-  return (int)launch<WIN>((const uint8_t*)img, H, W, (const float*)taps,      \
-                          window, packed, mn, mx, (int16_t*)nm_out,           \
-                          (uint32_t*)weak, (uint32_t*)strong,                 \
-                          (cudaStream_t)stream)
+  return (int)launch<WIN>(f, (const float*)taps, window, packed, mn, mx,      \
+                          (int16_t*)nm_out, (uint32_t*)weak,                  \
+                          (uint32_t*)strong, (cudaStream_t)stream)
   switch (window) {
     case 3: CANNY_FRONTEND_LAUNCH(3);
     case 5: CANNY_FRONTEND_LAUNCH(5);
@@ -447,6 +491,45 @@ int canny_frontend(const void* img, int H, int W, const void* taps, int window,
     default: CANNY_FRONTEND_LAUNCH(0);
   }
 #undef CANNY_FRONTEND_LAUNCH
+}
+
+}  // namespace
+
+extern "C" {
+
+// The largest odd window whose tile fits a block's shared memory on the
+// current device (0 if the device cannot be asked).
+int canny_frontend_max_window() {
+  const int limit = masks::smem_optin_limit();
+  int w = 1;
+  while (smem_bytes(w + 2) <= limit) w += 2;
+  return w < 3 ? 0 : w;
+}
+
+// img: uint8 (H, W); taps: float32 (window); packed == 0 -> nm_out int16
+// (H, W); packed != 0 -> weak/strong uint32 (H, ceil(W/32)).  Launches on
+// `stream` and returns cudaGetLastError().  Windows 3..15 run their own
+// unrolled instantiation, every other odd window the generic one.
+int canny_frontend(const void* img, int H, int W, const void* taps, int window,
+                   int packed, int mn, int mx, void* nm_out, void* weak,
+                   void* strong, void* stream) {
+  const Frame f{(const uint8_t*)img, H, W, 0, H, W, 0, 0, H, W};
+  return run(f, taps, window, packed, mn, mx, nm_out, weak, strong, stream);
+}
+
+// Block mode: window uint8 (oh + 2 halo, ow + 2 halo), its texel (halo, halo)
+// pixel (row0, col0) of an (H, W) image, zero or not past the image (never
+// read there); outputs as canny_frontend's for the (oh, ow) block: nm_out
+// int16 (oh, ow) or weak/strong uint32 (oh, ceil(ow/32)).  halo must cover
+// the front end's reach (window / 2 + 2) wherever the block does not meet
+// the image border.
+int canny_frontend_block(const void* window_u8, int oh, int ow, int halo,
+                         int row0, int col0, int H, int W, const void* taps,
+                         int window, int packed, int mn, int mx, void* nm_out,
+                         void* weak, void* strong, void* stream) {
+  const Frame f{(const uint8_t*)window_u8, oh + 2 * halo, ow + 2 * halo, halo,
+                oh, ow, row0, col0, H, W};
+  return run(f, taps, window, packed, mn, mx, nm_out, weak, strong, stream);
 }
 
 }  // extern "C"

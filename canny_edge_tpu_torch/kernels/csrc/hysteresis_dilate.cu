@@ -132,7 +132,9 @@ __device__ int flood_window(const uint32_t* w_s, uint32_t* e_s, int R, int nw) {
       uint32_t htop, hbot;
       masks::tile_halo(top, bot, lcol, rcol, lane, htop, hbot, hx);
       masks::tile_flood(w, e, htop, hbot, hx, lane,
-                        [](uint32_t d, uint32_t, uint32_t) { return d; });
+                        [](int, uint32_t d, uint32_t, uint32_t, uint32_t) {
+                          return d;
+                        });
 #pragma unroll
       for (int r = 0; r < SR; ++r)
         if (e[r] != o[r]) {               // only words inside the window differ

@@ -54,7 +54,11 @@
 // next to an edge reaches it, so it equals the plain version's rounds bit
 // for bit; only the number of steps depends on the schedule.  Strict mode:
 // pixel (0, 1) may not be promoted from (1, 0); only dilations move
-// diagonally, so only they carry the fix.  Reads of words that other blocks
+// diagonally, so only they carry the fix.  The image's pixel (0, 0) lies at
+// (quirk_row, quirk_word) of the masks, so the fix may fall in any tile: at
+// (1, 1) on a block extended by a halo of one row and one word (the
+// distributed flood of parallel/sharded.py); the caller decides whether the
+// image has a pixel (0, 1) at all.  Reads of words that other blocks
 // write use __ldcg (L2, not the incoherent L1).  A tile may or may not see a
 // neighbour's writes of the same step: words only gain bits, and the
 // neighbour marks the tile dirty for the next step either way.
@@ -85,15 +89,16 @@ struct Args {
   int nm_bytes, lo, hi;
   uint32_t* edges;     // packed edges: the output, or scratch before out16
   int16_t* out16;      // int16 {0, 255} output, or null
-  int H, W, strict;
+  int H, W, quirk_row, quirk_word;
   u64* flags;          // 2 x ntiles dirty tokens
   u64* any;            // 2 "anything marked" tokens
   int* steps;          // the number of steps run
   u64 token;           // launch sequence number << 32
 };
 
-// the strict-reference value of bit 1 (pixel (0, 1)) of word (0, 0) after a
-// dilation of `prev`: kept, or promoted from (0,0), (0,2), (1,1), (1,2) only
+// the strict-reference value of bit 1 (pixel (0, 1)) of the image's first
+// word after a dilation of `prev` (p0: that word, p1: the word below it):
+// kept, or promoted from (0,0), (0,2), (1,1), (1,2) only
 __device__ __forceinline__ uint32_t strict_fix(uint32_t d, uint32_t p0,
                                                uint32_t p1, uint32_t w0) {
   const uint32_t allowed = (p0 & 1u) | ((p0 >> 2) & 1u) | ((p1 >> 1) & 1u)
@@ -102,8 +107,9 @@ __device__ __forceinline__ uint32_t strict_fix(uint32_t d, uint32_t p0,
   return (d & ~2u) | (val << 1);
 }
 
+// STRICT: the strict fix is compiled in (component mode pays nothing for it)
+template <bool STRICT>
 __global__ void __launch_bounds__(THREADS, 1) flood_kernel(Args a) {
-  static_assert(R >= 2, "the strict fix reads rows 0 and 1 of tile 0");
   static_assert(R + 2 <= 32, "one lane per row of the side columns");
   cg::grid_group grid = cg::this_grid();
   const int H = a.H, W = a.W, wd = (W + 31) / 32;
@@ -111,7 +117,9 @@ __global__ void __launch_bounds__(THREADS, 1) flood_kernel(Args a) {
   const int ntiles = ntx * nty;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = WARPS * gridDim.x;
-  const bool strict = a.strict && H >= 2 && W >= 2;
+  // the tile, row and lane of the strict fix
+  const int qtile = (a.quirk_row / R) * ntx + a.quirk_word / TILE_WORDS;
+  const int qrow = a.quirk_row % R, qlane = a.quirk_word % TILE_WORDS;
 
   if (a.nm != nullptr) {
     pack_any(a.nm, a.nm_bytes, H, W, a.lo, a.hi, a.weak, a.strong,
@@ -156,10 +164,14 @@ __global__ void __launch_bounds__(THREADS, 1) flood_kernel(Args a) {
         o[r] = step == 0 ? (e[r] & w[r]) : e[r];   // what the neighbours assume
       uint32_t htop, hbot;
       masks::tile_halo(top, bot, lcol, rcol, lane, htop, hbot, hx);
-      const bool fix = strict && t == 0 && lane == 0;
+      const bool fix = STRICT && t == qtile && lane == qlane;
       masks::tile_flood(w, e, htop, hbot, hx, lane,
-                        [&](uint32_t d, uint32_t p0, uint32_t p1) {
-                          return fix ? strict_fix(d, p0, p1, w[0]) : d;
+                        [&](int r, uint32_t d, uint32_t p, uint32_t q,
+                            uint32_t wr) {
+                          // the row below the tile's last is the halo's
+                          return fix && r == qrow
+                                     ? strict_fix(d, p, r + 1 < R ? q : bot, wr)
+                                     : d;
                         });
 
       uint32_t diff = 0u;
@@ -206,6 +218,7 @@ int tiles_of(int H, int W) {
 }
 
 // co-resident blocks of the flood kernel, queried once per device
+template <bool STRICT>
 int grid_cap(cudaError_t* err) {
   static int cap[64];
   int dev = 0;
@@ -217,7 +230,7 @@ int grid_cap(cudaError_t* err) {
     *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (*err == cudaSuccess)
       *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, flood_kernel, THREADS, 0);
+          &per_sm, flood_kernel<STRICT>, THREADS, 0);
     if (*err != cudaSuccess) return 0;
     if (per_sm < 1) { *err = cudaErrorLaunchOutOfResources; return 0; }
     cap[dev] = sms * (per_sm < 2 ? per_sm : 2);
@@ -241,18 +254,22 @@ int canny_hysteresis_packed_scratch_words(int H, int W) {
 // uint32 scratch the pack fills; nm == null -> weak / strong are the packed
 // inputs.  Output: out16 != null -> int16 {0, 255} (H, W), and edges is
 // (H, ceil(W/32)) uint32 scratch; out16 == null -> edges is the packed
-// output.  The step count lands in the last scratch word (as an int).  Launches on
+// output.  strict != 0: the strict-reference fix of the image's pixel (0, 1),
+// with its pixel (0, 0) at row quirk_row, word quirk_word of the masks.  The
+// step count lands in the last scratch word (as an int).  Launches on
 // `stream` and returns cudaGetLastError().
 int canny_hysteresis_packed(void* weak, void* strong, const void* nm,
                             int nm_bytes, int lo, int hi, void* edges,
                             void* out16, int H, int W, int strict,
-                            void* scratch, unsigned long long token,
-                            void* stream) {
-  if (H <= 0 || W <= 0 || (nm != nullptr && nm_bytes != 2 && nm_bytes != 4))
+                            int quirk_row, int quirk_word, void* scratch,
+                            unsigned long long token, void* stream) {
+  if (H <= 0 || W <= 0 || (nm != nullptr && nm_bytes != 2 && nm_bytes != 4)
+      || (strict && (quirk_row < 0 || quirk_row >= H || quirk_word < 0
+                     || quirk_word >= (W + 31) / 32)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e = cudaSuccess;
-  const int cap = grid_cap(&e);
+  const int cap = strict ? grid_cap<true>(&e) : grid_cap<false>(&e);
   if (e != cudaSuccess) return (int)e;
   const int wd = (W + 31) / 32;
   const long long nwords = (long long)H * wd;
@@ -270,7 +287,8 @@ int canny_hysteresis_packed(void* weak, void* strong, const void* nm,
   a.out16 = (int16_t*)out16;
   a.H = H;
   a.W = W;
-  a.strict = strict;
+  a.quirk_row = quirk_row;
+  a.quirk_word = quirk_word;
   a.flags = (u64*)scratch;
   a.any = a.flags + 2 * (size_t)ntiles;
   a.steps = (int*)(a.any + 2);
@@ -281,7 +299,9 @@ int canny_hysteresis_packed(void* weak, void* strong, const void* nm,
     want = (nwords + THREADS - 1) / THREADS;
   const int grid = (int)(want < cap ? want : cap);
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)flood_kernel, dim3(grid),
+  const void* kernel = strict ? (const void*)flood_kernel<true>
+                              : (const void*)flood_kernel<false>;
+  e = cudaLaunchCooperativeKernel(kernel, dim3(grid),
                                   dim3(THREADS), args, 0, st);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

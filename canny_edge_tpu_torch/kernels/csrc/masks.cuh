@@ -269,8 +269,10 @@ __device__ __forceinline__ void tile_halo(uint32_t top, uint32_t bot,
 // inside each word, the carries between the 32 words scanned by the same
 // carry-add on the warp's ballots) and a flood down and up each column of
 // registers, until a dilation changes nothing.  The first dilation gives
-// w & dilate8(e), so e may start as seeds that are not weak.  `fix(d, p0,
-// p1)` may correct row 0 of a dilation, given rows 0 and 1 before it.
+// w & dilate8(e), so e may start as seeds that are not weak.  `fix(r, d,
+// p, q, wr)` may correct row r of a dilation d, given that row (p) and the
+// next (q; 0 past the tile's last row, whose next row the caller holds)
+// before it and the row's weak word wr.
 template <class Fix>
 __device__ __forceinline__ void tile_flood(const uint32_t (&w)[TILE_ROWS],
                                            uint32_t (&e)[TILE_ROWS],
@@ -281,14 +283,13 @@ __device__ __forceinline__ void tile_flood(const uint32_t (&w)[TILE_ROWS],
   for (;;) {
     uint32_t chg = 0u;
     // dilation (Jacobi: every row term is taken before its row changes)
-    const uint32_t p0 = e[0], p1 = e[1];
     uint32_t hm = htop, hc = tile_hrow(e[0], hx[0], lane);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       uint32_t hn = hbot;
       if (r + 1 < R) hn = tile_hrow(e[r + 1], hx[r + 1], lane);
       uint32_t d = w[r] & (hm | hc | hn);
-      if (r == 0) d = fix(d, p0, p1);
+      d = fix(r, d, e[r], r + 1 < R ? e[r + 1] : 0u, w[r]);
       chg |= d ^ e[r];
       e[r] = d;
       hm = hc;

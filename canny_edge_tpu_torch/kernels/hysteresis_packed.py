@@ -24,17 +24,19 @@ from ..ops.packed import cdiv, hysteresis_packed_masks, pack_mask, unpack_edges
 from . import _build
 from ._scratch import Scratch, buffer, next_token
 
-# kernel launches made by this wrapper (the main path's proof of use)
+# kernel launches made by this wrapper (the main path's proof of use): all,
+# and those with the strict fix off (0, 0) (a halo-extended block)
 launches = 0
+quirk_launches = 0
 
 _scratch = Scratch()
 
 
 def _launch(dev, h, w, *, weak=None, strong=None, nm=None, lo=0, hi=0,
-            int16_out, strict):
+            int16_out, strict, quirk_rw=(0, 0)):
     """One call of the kernel; returns ``(output, steps)`` with ``steps`` a
     0-d view of the scratch that the next call on this shape overwrites."""
-    global launches
+    global launches, quirk_launches
     lib = _build.load("hysteresis_packed")
     with _build.device_guard(dev):
         stream = _build.stream_handle(dev)
@@ -57,20 +59,24 @@ def _launch(dev, h, w, *, weak=None, strong=None, nm=None, lo=0, hi=0,
             None if nm is None else nm.data_ptr(),
             0 if nm is None else nm.element_size(), int(lo), int(hi),
             edges.data_ptr(), out.data_ptr() if int16_out else None, h, w,
-            int(bool(strict)), entry["ctl"].data_ptr(), next_token(),
-            stream)
+            int(bool(strict)), *quirk_rw, entry["ctl"].data_ptr(),
+            next_token(), stream)
     _build.check(err, "canny_hysteresis_packed launch")
     launches += 1
+    quirk_launches += bool(strict) and tuple(quirk_rw) != (0, 0)
     return out, entry["ctl"][-1]
 
 
 def hysteresis_packed(weak: torch.Tensor, strong: torch.Tensor, height: int,
-                      width: int, *, strict: bool = False,
+                      width: int, *, strict: bool = False, quirk_rw=(0, 0),
                       return_steps: bool = False, edges_int16: bool = False):
     """Flood ``weak`` from ``strong`` to the fixed point.
 
     ``strict``: the strict-reference exclusion of the promotion
-    (1,0) -> (0,1).  ``edges_int16``: return the int16 {0, 255} edge map
+    (1,0) -> (0,1), where pixel (0, 0) of the image lies at ``quirk_rw`` =
+    (row, word) of the masks (``(1, 1)`` on a block extended by a halo of
+    one row and one word; the caller then says whether the whole image has
+    a pixel (0, 1)).  ``edges_int16``: return the int16 {0, 255} edge map
     ``(height, width)`` instead of the packed mask.  ``return_steps``: also
     return the number of flood steps (kernel: grid-wide steps, a 0-d device
     tensor; CPU: the plain version's rounds).
@@ -84,15 +90,20 @@ def hysteresis_packed(weak: torch.Tensor, strong: torch.Tensor, height: int,
         raise ValueError(f"empty image {height}x{width}")
     if weak.device != strong.device:
         raise ValueError("weak and strong lie on different devices")
+    strict = strict and height >= 2 and width >= 2
+    if strict and not (0 <= quirk_rw[0] < shape[0]
+                       and 0 <= quirk_rw[1] < shape[1]):
+        raise ValueError(f"quirk_rw {tuple(quirk_rw)} outside the masks {shape}")
     if weak.device.type == "cpu":
         out, steps = hysteresis_packed_masks(weak, strong, height, width,
-                                             strict=strict)
+                                             strict=strict, quirk_rw=quirk_rw)
         if edges_int16:
             out = unpack_edges(out, width)
     elif weak.device.type == "cuda":
         out, steps = _launch(
             weak.device, height, width, weak=weak.contiguous(),
-            strong=strong.contiguous(), int16_out=edges_int16, strict=strict)
+            strong=strong.contiguous(), int16_out=edges_int16, strict=strict,
+            quirk_rw=quirk_rw)
         if return_steps:
             steps = steps.clone()
     else:
@@ -125,6 +136,7 @@ def hysteresis_packed_nm(nm: torch.Tensor, min_val: int, max_val: int, *,
         raise ValueError("expected a non-empty int16/int32 (H, W) or (B, H, W) "
                          f"NMS map, got {nm.dtype} {tuple(nm.shape)}")
     h, w = nm.shape
+    strict = strict and h >= 2 and w >= 2
     if nm.device.type == "cpu":
         out, steps = hysteresis_packed_masks(
             pack_mask(nm >= min_val), pack_mask(nm >= max_val), h, w,

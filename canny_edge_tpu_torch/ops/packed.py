@@ -130,21 +130,25 @@ def dilate_packed(e, weak):
     return weak & (h | _shift_words(h, -1, -2) | _shift_words(h, 1, -2))
 
 
-def strict_fix_packed(new, prev, weak):
+def strict_fix_packed(new, prev, weak, row0: int = 0, word0: int = 0):
     """Strict-reference correction of global pixel (0, 1) after a dilation.
 
     The reference BFS lacks the directed edge (1,0)->(0,1)
     (``src/utils.cpp:378,399``), so (0, 1) is re-derived from its allowed
     sources (0,0), (0,2), (1,1), (1,2) only.  The floods never move
-    diagonally, so only dilations need this fix.  Needs H >= 2 and W >= 2.
+    diagonally, so only dilations need this fix.  ``row0`` / ``word0``:
+    where global row 0 and word 0 lie in the arrays (``(1, 1)`` on a block
+    extended by a halo of one row and one word); a row below the arrays
+    reads as 0.  Needs the image to have a pixel (0, 1).
     """
-    p0 = prev[..., 0, 0]
-    p1 = prev[..., 1, 0]
+    p0 = prev[..., row0, word0]
+    p1 = (prev[..., row0 + 1, word0] if row0 + 1 < prev.shape[-2]
+          else torch.zeros_like(p0))
     allowed = ((p0 & 1) | ((p0 >> 2) & 1) | ((p1 >> 1) & 1)
                | ((p1 >> 2) & 1))
-    val = ((p0 >> 1) & 1) | (((weak[..., 0, 0] >> 1) & 1) & allowed)
+    val = ((p0 >> 1) & 1) | (((weak[..., row0, word0] >> 1) & 1) & allowed)
     out = new.clone()
-    out[..., 0, 0] = (new[..., 0, 0] & (_M32 ^ 2)) | (val << 1)
+    out[..., row0, word0] = (new[..., row0, word0] & (_M32 ^ 2)) | (val << 1)
     return out
 
 
@@ -197,12 +201,14 @@ def vflood(e, weak, height: int):
 # ---------------------------------------------------------------------------
 
 def hysteresis_packed_masks(weak_p, strong_p, height: int, width: int,
-                            inner_dilate: int = 4, strict: bool = False):
+                            inner_dilate: int = 4, strict: bool = False,
+                            quirk_rw=(0, 0)):
     """Packed uint32 weak/strong masks -> (packed edge mask, rounds run).
 
     The plain version of the K2 kernel.  ``inner_dilate`` changes the
     number of rounds, never the result.  ``strict``: apply the
-    strict-reference exclusion to every dilation (:func:`strict_fix_packed`).
+    strict-reference exclusion to every dilation (:func:`strict_fix_packed`)
+    at ``quirk_rw``, the (row, word) of global pixel (0, 0) in the masks.
     """
     strict = strict and height >= 2 and width >= 2
     weak = from_words(weak_p)
@@ -210,7 +216,7 @@ def hysteresis_packed_masks(weak_p, strong_p, height: int, width: int,
 
     def dil(x):
         d = dilate_packed(x, weak)
-        return strict_fix_packed(d, x, weak) if strict else d
+        return strict_fix_packed(d, x, weak, *quirk_rw) if strict else d
 
     rounds = 0
     while True:

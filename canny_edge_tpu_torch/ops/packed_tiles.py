@@ -32,12 +32,13 @@ from .packed import (cdiv, dilate_packed, from_words, hflood,
 DEFAULT_TILE = (8, 32)      # the kernel's tile: 8 rows x 32 words
 
 
-def _local_fixed_point(win, weak_own, strict0: bool):
+def _local_fixed_point(win, weak_own, fix_at):
     """Flood a batch of tile windows ``(n, rows+2, words+2)`` in place.
 
     The halo ring stays as it is; ``weak_own`` is the weak mask with the
-    ring zeroed, so only own words change.  ``strict0``: window 0 is the
-    tile that holds pixel (0, 1) and takes the strict fix.
+    ring zeroed, so only own words change.  ``fix_at``: None, or ``(i, row,
+    word)``: window i holds pixel (0, 1) at that row and word of the window
+    and takes the strict fix (which may read the ring's row below).
     """
     rows, words = win.shape[-2] - 2, win.shape[-1] - 2
     ring = win.clone()
@@ -45,9 +46,9 @@ def _local_fixed_point(win, weak_own, strict0: bool):
     wk_own = weak_own[:, 1:-1, 1:-1]
     while True:
         d = dilate_packed(win, weak_own)
-        if strict0:
-            d[0, 1:-1, 1:-1] = strict_fix_packed(
-                d[0, 1:-1, 1:-1], win[0, 1:-1, 1:-1], wk_own[0])
+        if fix_at is not None:
+            i, r, w = fix_at
+            d[i] = strict_fix_packed(d[i], win[i], weak_own[i], r, w)
         own = vflood(hflood(d[:, 1:-1, 1:-1], wk_own, 32 * words), wk_own, rows)
         new = ring.clone()
         new[:, 1:-1, 1:-1] = own
@@ -57,14 +58,16 @@ def _local_fixed_point(win, weak_own, strict0: bool):
 
 
 def hysteresis_packed_tiles(weak_p, strong_p, height: int, width: int, *,
-                            tile=DEFAULT_TILE, strict: bool = False):
+                            tile=DEFAULT_TILE, strict: bool = False,
+                            quirk_rw=(0, 0)):
     """Packed uint32 weak/strong masks -> ``(edges, steps, floods)``.
 
     ``edges``: the packed edge mask, equal to
     :func:`.packed.hysteresis_packed_masks`'s whatever the tile.  ``steps``:
     grid-wide steps until one marks no tile.  ``floods``: tile floods run
     (all tiles in step 0, the dirty ones after).  ``tile``: ``(rows,
-    words)``; strict mode needs ``rows >= 2``.
+    words)``; strict mode needs ``rows >= 2``.  ``quirk_rw``: the (row, word)
+    of the strict fix, as in :func:`.packed.hysteresis_packed_masks`.
     """
     rows, words = tile
     if rows < 1 or words < 1:
@@ -93,11 +96,16 @@ def hysteresis_packed_tiles(weak_p, strong_p, height: int, width: int, *,
     weak_own[..., :, -1] = 0
     state = weak & strong                  # what the neighbours assume
     dirty = torch.ones((nty, ntx), dtype=torch.bool, device=weak.device)
+    qr, qw = quirk_rw
+    qt = (qr // rows) * ntx + qw // words      # the tile of the strict fix
     steps = floods = 0
     while True:
         src = strong if steps == 0 else state
-        win = _local_fixed_point(windows(src)[dirty], weak_own[dirty],
-                                 strict and bool(dirty[0, 0]))
+        fix_at = None
+        if strict and bool(dirty.flatten()[qt]):
+            fix_at = (int(dirty.flatten()[:qt].sum()), qr % rows + 1,
+                      qw % words + 1)
+        win = _local_fixed_point(windows(src)[dirty], weak_own[dirty], fix_at)
         new = windows(state)[..., 1:-1, 1:-1].clone()
         old = new[dirty]
         own = win[:, 1:-1, 1:-1]

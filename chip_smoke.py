@@ -4,7 +4,8 @@ front end -> K2 packed flood -> unpack) and the ``pallas`` backend
 (``canny_fused``: K1 in NMS mode -> K2, K3 tiled dilation or K4 banded
 raster scan); then drives the command line (frames in, batched and staged
 onto the card, K1 -> K2 a frame, PNGs out), the stage path and
-``SobelTorch`` on the card.
+``SobelTorch`` on the card, and the multi-device path (``ShardedCanny``:
+K1 in block mode -> the distributed K2 flood) over meshes on the one card.
 
     python3 chip_smoke.py
 
@@ -63,7 +64,19 @@ Phases (any failure exits non-zero and prints no result):
      model (their ratio), the stream of 64 ready 1080p frames from a
      ``raw8`` file three times (its spread) and once under
      ``utils.trace`` (the card's idle share), the stage path and
-     ``SobelTorch`` a frame.
+     ``SobelTorch`` a frame;
+ 11. the multi-device path: K1 at windows 17, 21, 25, 31, 33, 37 and 55 on
+     1080p and 257x333, K1 block mode at each border class of a 4K frame
+     (sigma 1.4 and 6.0) and K2 with the strict fix at (1, 1) of
+     halo-extended blocks (the quirk image, the eight blocks of a 4K
+     frame), each against its plain version; ``ShardedCanny`` on a 4K frame
+     and 8 1080p frames over the real 1x1x1 mesh (a process group of one,
+     NCCL) and in-process meshes 1x2x2, 1x2x4 and 2x2x2 on the one card,
+     strict at 1x2x4 and the generic engine on 10x12, each bit-equal to the
+     fused backend, with K1's block-mode and K2's quirk launches counted
+     from 0; ``--backend sharded`` on 8 1080p frames against the fused
+     PNGs; wall and device ms of the 4K sharded frame at each mesh and the
+     flood's rounds a frame, printed on a ``multi-device:`` line.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Every measured number also goes to
 standard error as one ``report:`` JSON line and to
@@ -387,7 +400,7 @@ def command_line_phase(dev, time_ms, hw=SIZES["1080p"], hw4k=SIZES["4k"]):
         wall = time.perf_counter() - t
         edges8 = model.batch(np.stack(frames[:8]), MN, MX)
         make_run_batch = cli._make_run_batch
-        cli._make_run_batch = lambda cfg, device: (lambda b: edges8, None)
+        cli._make_run_batch = lambda cfg, device, first: (lambda b: edges8, None)
         t = time.perf_counter()
         bare = run_cli(big + ["--out-dir", d("bare")])
         bare_wall = time.perf_counter() - t
@@ -467,6 +480,315 @@ def command_line_phase(dev, time_ms, hw=SIZES["1080p"], hw4k=SIZES["4k"]):
           f"{tm['stage_prefix_ms']:.3f} ms ({tm['stage_path_s_per_px']:.3e} "
           f"s/px), SobelTorch {tm['sobel_ms']:.3f} ms, fused frame "
           f"{tm['fused_frame_ms']:.4f} ms", flush=True)
+    return rep
+
+
+def multi_device_phase(dev, time_ms, device_ms, hw=SIZES["1080p"],
+                       hw4k=SIZES["4k"], odd=(257, 333), batch=8):
+    """Phase 11: the multi-device path on the card.  K1 at windows 17 to 55
+    and in block mode, K2 with the strict fix at (1, 1), each against its
+    plain version; ``ShardedCanny`` at 4K (``hw4k``) and on ``batch`` frames
+    of ``hw`` over the real 1x1x1 mesh (a ``torch.distributed`` group of one)
+    and in-process meshes of 4 and 8 blocks on the one card, bit-equal to
+    ``CannyTorch``'s fused frames, with K1's block-mode and K2's quirk
+    launches counted from 0; strict mode at 1x2x4, the generic engine; the
+    command line's ``--backend sharded``.  Returns the report."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from canny_edge_tpu_torch import CannyTorch
+    from canny_edge_tpu_torch.io import imageio
+    from canny_edge_tpu_torch.kernels import frontend as kfe
+    from canny_edge_tpu_torch.kernels import hysteresis_packed as khp
+    from canny_edge_tpu_torch.ops import packed as P
+    from canny_edge_tpu_torch.ops import window as Wn
+    from canny_edge_tpu_torch.ops.gaussian import gaussian_kernel
+    from canny_edge_tpu_torch.parallel import ShardedCanny, make_mesh
+    from canny_edge_tpu_torch.parallel import multihost
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def u32eq(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    rep = {}
+    t0 = time.perf_counter()
+    # ---- K1 at the windows of the generic instantiation, up to 55 ----
+    windows = set()
+    k1_err = 0
+    for sigma in (2.5, 3.2, 3.9, 4.9, 5.2, 6.0, 9.0):
+        kern = gaussian_kernel(sigma)
+        windows.add(len(kern))
+        taps = torch.from_numpy(kern).to(dev)
+        for h, w in (hw, odd):
+            img = torch.from_numpy(make_image(h, w, seed=h + len(kern))).to(dev)
+            ref = Wn.frontend_nm(img, kern)
+            nm = kfe.frontend(img, taps).to(torch.int32)
+            weak, strong = kfe.frontend(img, taps, (MN, MX))
+            sync()
+            k1_err = max(k1_err, int((nm - ref).abs().max()))
+            check(torch.equal(nm, ref)
+                  and u32eq(weak, P.pack_mask(ref >= MN))
+                  and u32eq(strong, P.pack_mask(ref >= MX)),
+                  f"K1 differs at window {len(kern)}, {h}x{w}")
+    check(windows == {17, 21, 25, 31, 33, 37, 55}, f"K1 windows {windows}")
+    rep["k1_windows"] = {"windows": sorted(windows), "max_abs_err": k1_err,
+                         "s": time.perf_counter() - t0}
+    log(f"K1 bit-equal at windows {sorted(windows)}")
+
+    # ---- K1 block mode at every border class of a 4K frame ----
+    t0 = time.perf_counter()
+    H, W = hw4k
+    frame4k = make_image(H, W, seed=4)
+    img4k = torch.from_numpy(frame4k).to(dev)
+    hl, wl = H // 2, -(-(W // 4) // 32) * 32        # a block of a 1x2x4 mesh
+    blocks = {"top_left": (0, 0, hl, wl), "interior": (0, wl, hl, wl),
+              "bottom_right": (H - hl, W - wl, hl, wl),
+              "full_width": (H - hl, 0, hl, W),
+              "past_the_image": (H - 40, W - 32, 64, 64)}
+    block_err = 0
+    for sigma in (SIGMA, 6.0):
+        kern = gaussian_kernel(sigma)
+        taps = torch.from_numpy(kern).to(dev)
+        r = len(kern) // 2 + 2
+        pad = F.pad(img4k, (r, r + 64, r, r + 64))
+        for name, (row0, col0, bh, bw) in blocks.items():
+            win = pad[row0:row0 + bh + 2 * r, col0:col0 + bw + 2 * r].contiguous()
+            nm = kfe.frontend_block(win, row0, col0, H, W, taps).to(torch.int32)
+            ref = Wn.frontend_block(win, row0, col0, H, W, kern)
+            got = kfe.frontend_block(win, row0, col0, H, W, taps, (MN, MX))
+            want = Wn.frontend_block(win, row0, col0, H, W, kern, (MN, MX))
+            sync()
+            block_err = max(block_err, int((nm - ref).abs().max()))
+            check(torch.equal(nm, ref) and all(u32eq(a, b) for a, b in
+                                               zip(got, want)),
+                  f"K1 block mode differs: sigma {sigma} {name}")
+    rep["k1_block"] = {"blocks": list(blocks), "max_abs_err": block_err,
+                       "s": time.perf_counter() - t0}
+    log(f"K1 block mode bit-equal at {list(blocks)}, sigma {SIGMA} and 6.0")
+
+    # ---- K2 with the strict fix at (1, 1) of halo-extended blocks ----
+    t0 = time.perf_counter()
+    taps14 = torch.from_numpy(gaussian_kernel(SIGMA)).to(dev)
+
+    def extended(masks, y, x, bh, bwd):
+        """The (bh + 2, bwd + 2) words of block (y, x) with a halo of one
+        row and one word, zero past the image."""
+        return [F.pad(m.view(torch.int32), (1, 1, 1, 1))[
+            y * bh:(y + 1) * bh + 2, x * bwd:(x + 1) * bwd + 2]
+            .contiguous().view(torch.uint32) for m in masks]
+
+    quirk_img = np.zeros((128, 256), np.uint8)     # tests/test_strict_mode.py
+    quirk_img[0:4, 0:5] = [[122, 140, 225, 71, 74], [230, 67, 252, 59, 57],
+                           [136, 47, 164, 232, 168], [128, 9, 222, 235, 150]]
+    quirk_img[64, 128] = 200
+    cases = {"quirk_image": extended(kfe.frontend(
+        torch.from_numpy(quirk_img).to(dev),
+        torch.from_numpy(gaussian_kernel(0.5)).to(dev), (144, 145)),
+        0, 0, 64, 2)}
+    masks4k = kfe.frontend(img4k, taps14, (MN, MX))
+    for y in range(2):
+        for x in range(4):
+            cases[f"4k_block_{y}{x}"] = extended(masks4k, y, x, hl, wl // 32)
+    k2_err = 0
+    quirk_bit = {}
+    for name, (weak, strong) in cases.items():
+        h, w = weak.shape[0], weak.shape[1] * 32
+        for strict in (False, True):
+            ref, _ = P.hysteresis_packed_masks(weak, strong, h, w,
+                                               strict=strict, quirk_rw=(1, 1))
+            out = khp.hysteresis_packed(weak, strong, h, w, strict=strict,
+                                        quirk_rw=(1, 1))
+            sync()
+            k2_err = max(k2_err, int((P.unpack_edges(out, w)
+                                      - P.unpack_edges(ref, w)).abs().max()) // 255)
+            check(u32eq(out, ref), f"K2 with quirk (1, 1) differs: {name} "
+                  f"strict={strict}")
+            if name == "quirk_image":        # global pixel (0, 1)
+                quirk_bit[strict] = int(P.from_words(out)[1, 1]) >> 1 & 1
+    check(quirk_bit == {False: 1, True: 0},
+          f"the quirk image's pixel (0, 1) is {quirk_bit} by strict mode")
+    rep["k2_quirk"] = {"cases": list(cases), "max_abs_err": k2_err,
+                       "s": time.perf_counter() - t0}
+    log(f"K2 with quirk (1, 1) bit-equal on {len(cases)} extended blocks x 2 modes")
+
+    # ---- ShardedCanny on the card: the main path, counts from 0 ----
+    t0 = time.perf_counter()
+    frames = np.stack([make_image(*hw, seed=10 + i) for i in range(batch)])
+    pair4k = np.stack([frame4k, make_image(H, W, seed=5)])
+    fused = {m: CannyTorch(SIGMA, hysteresis_mode=m, device=dev)
+             for m in ("component", "strict-reference")}
+    ref4k = fused["component"].batch(pair4k, MN, MX)
+    ref_batch = fused["component"].batch(frames, MN, MX)
+    ref_strict = fused["strict-reference"](frame4k, MN, MX)
+    tiny = make_image(10, 12, seed=6)
+    ref_tiny = CannyTorch(2.0, device=dev)(tiny, MN, MX)
+    sync()
+    in_process = [(1, 2, 2), (1, 2, 4), (2, 2, 2)]
+    models = {}
+    kfe.launches = kfe.block_launches = 0
+    khp.launches = khp.quirk_launches = 0
+    outs = {}
+    # the real mesh: a process group of one (NCCL on the card)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    check(multihost.initialize(f"localhost:{port}", 1, 0, device=dev.type)
+          == (0, 1), "the process group did not start")
+    try:
+        mesh = make_mesh()
+        check(mesh.ranks is not None and mesh.size == 1,
+              f"the real mesh is {mesh}")
+        models["1x1x1"] = ShardedCanny(mesh, SIGMA, (H, W))
+        models["1x1x1_1080p"] = ShardedCanny(mesh, SIGMA, hw)
+        outs["1x1x1"] = models["1x1x1"](pair4k[:1], MN, MX)
+        outs["1x1x1_1080p"] = models["1x1x1_1080p"](frames, MN, MX)
+        sync()
+    finally:
+        dist.destroy_process_group()
+    for d, y, x in in_process:
+        tag = f"{d}x{y}x{x}"
+        mesh = make_mesh([dev] * (d * y * x), data=d, y=y, x=x)
+        models[tag] = ShardedCanny(mesh, SIGMA, (H, W))
+        models[f"{tag}_1080p"] = ShardedCanny(mesh, SIGMA, hw)
+        outs[tag] = models[tag](pair4k[:d], MN, MX)
+        outs[f"{tag}_1080p"] = models[f"{tag}_1080p"](frames, MN, MX)
+    strict_mesh = make_mesh([dev] * 8, y=2, x=4)
+    models["strict_1x2x4"] = ShardedCanny(strict_mesh, SIGMA, (H, W),
+                                          hysteresis_mode="strict-reference")
+    outs["strict_1x2x4"] = models["strict_1x2x4"](frame4k[None], MN, MX)
+    models["generic_1x2x4"] = ShardedCanny(strict_mesh, 2.0, (10, 12))
+    outs["generic_1x2x4"] = models["generic_1x2x4"](tiny[None], MN, MX)
+    sync()
+    counts = {"frontend": kfe.launches, "frontend_block": kfe.block_launches,
+              "hysteresis_packed": khp.launches,
+              "hysteresis_packed_quirk": khp.quirk_launches}
+    log(f"multi-device launches: {counts}")
+    check(all(v > 0 for v in counts.values()),
+          f"a kernel of the multi-device path was not launched: {counts}")
+    check(models["generic_1x2x4"].engine == "generic"
+          and all(m.engine == "static" and m.flood == "vmem"
+                  for k, m in models.items() if k != "generic_1x2x4"),
+          "engine or flood not as expected")
+    rounds = {}
+    for tag, out in outs.items():
+        if tag == "strict_1x2x4":
+            want = ref_strict[None]
+        elif tag == "generic_1x2x4":
+            want = ref_tiny[None]
+        elif tag.endswith("_1080p"):
+            want = ref_batch
+        else:
+            want = ref4k[:out.shape[0]]
+        check(out.dtype == torch.int16 and torch.equal(out, want),
+              f"ShardedCanny {tag} differs from the fused backend")
+        rounds[tag] = list(models[tag].rounds)
+    rep["sharded_check"] = {"meshes": list(outs), "rounds_per_frame": rounds,
+                            "launches": counts,
+                            "s": time.perf_counter() - t0}
+    log(f"ShardedCanny bit-equal to the fused backend on {list(outs)}; "
+        f"rounds a frame {rounds}")
+
+    # ---- times of the 4K sharded frame at each mesh ----
+    t0 = time.perf_counter()
+    times = {}
+    for tag in ["1x1x1"] + [f"{d}x{y}x{x}" for d, y, x in in_process]:
+        model = models[tag]
+        if tag == "1x1x1":      # the group is gone: the same one block
+            model = ShardedCanny(make_mesh([dev]), SIGMA, (H, W))
+        n = model.mesh.shape["data"]
+        imgs = torch.from_numpy(pair4k[:n]).to(dev)
+
+        def call():
+            return model(imgs, MN, MX)
+
+        call()
+        sync()
+        walls = []
+        for _ in range(3):
+            ta = time.perf_counter()
+            call()
+            sync()
+            walls.append((time.perf_counter() - ta) * 1e3 / n)
+        by = device_ms(call)
+        times[tag] = {"wall_ms": float(np.median(walls)),
+                      "device_ms": sum(by.values()) / n if by else
+                      "not measured",
+                      "device_by_kernel": by,
+                      "rounds_per_frame": list(model.rounds)}
+    fused4k = fused["component"]
+    times["fused_frame_4k_ms"] = time_ms(lambda: fused4k(img4k, MN, MX), 10, 3)
+    rep["sharded_4k_times"] = times
+    rep["sharded_times_s"] = time.perf_counter() - t0
+
+    # ---- the kernels' own times at a 4K block (the kernels line) ----
+    r = len(gaussian_kernel(SIGMA)) // 2 + 2
+    kern = gaussian_kernel(SIGMA)
+    win = F.pad(img4k, (r, r, r, r))[0:hl + 2 * r, wl:2 * wl + 2 * r].contiguous()
+    weak, strong = cases["4k_block_00"]
+    eh, ew = weak.shape[0], weak.shape[1] * 32
+
+    def k1_block():
+        return kfe.frontend_block(win, 0, wl, H, W, taps14, (MN, MX))
+
+    def k2_quirk():
+        return khp.hysteresis_packed(weak, strong, eh, ew, strict=True,
+                                     quirk_rw=(1, 1))
+
+    kt = {
+        "k1_block_ms": time_ms(k1_block, 50),
+        "k1_block_plain_ms": time_ms(lambda: Wn.frontend_block(
+            win, 0, wl, H, W, kern, (MN, MX)), 3, 3),
+        "k2_quirk_ms": time_ms(k2_quirk, 50),
+        "k2_quirk_plain_ms": time_ms(lambda: P.hysteresis_packed_masks(
+            weak, strong, eh, ew, strict=True, quirk_rw=(1, 1)), 3, 3),
+        "k2_quirk_steps": int(khp.hysteresis_packed(
+            weak, strong, eh, ew, strict=True, quirk_rw=(1, 1),
+            return_steps=True)[1]),
+    }
+    for key, fn in (("k1_block", k1_block), ("k2_quirk", k2_quirk)):
+        by = device_ms(fn)
+        kt[f"{key}_device_ms"] = sum(by.values()) if by else "not measured"
+    # K1 block: the window read once, the two masks written once; per pixel
+    # as K1 (phase 6).  K2: two masks read and one written, ~40 operations
+    # a word
+    wd = wl // 32
+    for k, b, o in (("k1_block", win.numel() + 2 * hl * wd * 4,
+                     hl * wl * (4 * len(kern) + 45)),
+                    ("k2_quirk", 3 * eh * (ew // 32) * 4,
+                     40 * eh * (ew // 32))):
+        tb, to = b / HBM_BYTES_PER_S * 1e3, o / SEPARATE_OPS_PER_S * 1e3
+        kt[f"{k}_bound_ms"] = max(tb, to)
+        kt[f"{k}_bound_by"] = "bytes" if tb >= to else "operations"
+    rep["kernel_times"] = kt
+    rep["max_abs_err"] = {"frontend_block": block_err, "k2_quirk": k2_err}
+
+    # ---- the command line: --backend sharded against the fused PNGs ----
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = f"synthetic:{hw[0]}x{hw[1]}x{batch}"
+        base = [spec, "1.4", str(MN), str(MX), "--batch", str(batch),
+                "--json", "--device", dev.type]
+        kfe.block_launches = khp.launches = 0
+        sharded = run_cli(base + ["--backend", "sharded", "--out-dir",
+                                  os.path.join(tmp, "sharded")])
+        check(kfe.block_launches == batch and khp.launches == batch,
+              f"the sharded command line launched K1 block {kfe.block_launches}"
+              f" and K2 {khp.launches} times for {batch} frames")
+        run_cli(base + ["--out-dir", os.path.join(tmp, "fused")])
+        for i in range(batch):
+            a, b = (imageio.load_grayscale(os.path.join(
+                tmp, d, f"edges_{i:06d}.png")) for d in ("sharded", "fused"))
+            check(np.array_equal(a, b) and a.any(),
+                  f"sharded command line frame {i} differs from fused")
+    rep["cli_sharded"] = {"frames": batch, "fps": sharded["fps"],
+                          "s": time.perf_counter() - t0}
+    log(f"command line --backend sharded equals fused on {batch} frames")
     return rep
 
 
@@ -1122,6 +1444,20 @@ def main():
     report["cli_path"] = command_line_phase(dev, time_ms)
     report["cli_path"]["s"] = time.perf_counter() - t0
 
+    # ---- 11. the multi-device path ----
+    t0 = time.perf_counter()
+    md = multi_device_phase(dev, time_ms, device_ms)
+    md["s"] = time.perf_counter() - t0
+    report["multi_device"] = md
+    md_line = {"card": card, "launches": md["sharded_check"]["launches"],
+               "rounds_per_frame": md["sharded_check"]["rounds_per_frame"],
+               "sharded_4k": {k: {"wall_ms": v["wall_ms"],
+                                  "device_ms": v["device_ms"]}
+                              for k, v in md["sharded_4k_times"].items()
+                              if isinstance(v, dict)},
+               "fused_frame_4k_ms": md["sharded_4k_times"]["fused_frame_4k_ms"]}
+    print("multi-device: " + json.dumps(md_line), flush=True)
+
     t1 = times["1080p"]
     kernels = [
         {"name": "frontend", "route": "cuda",
@@ -1165,6 +1501,30 @@ def main():
             "device_ms_4k": times["4k"][f"{k}_device_ms"]})
     kernels[-1]["rounds"] = {"max": t1["k4_rounds_max"],
                              "mean": t1["k4_rounds_mean"]}
+    kt = md["kernel_times"]
+    kernels += [
+        {"name": "frontend_block", "route": "cuda",
+         "source": "canny_edge_tpu_torch/kernels/csrc/frontend.cu",
+         "replaces": "canny_edge_tpu/kernels/frontend.py:153",
+         "launches": md["sharded_check"]["launches"]["frontend_block"],
+         "max_abs_err": md["max_abs_err"]["frontend_block"],
+         "ms": kt["k1_block_ms"], "plain_ms": kt["k1_block_plain_ms"],
+         "bound_ms": kt["k1_block_bound_ms"],
+         "bound_by": kt["k1_block_bound_by"], "library_ms": None,
+         "match": True, "shape": "a 1080x960 block of 2160x3840, halo 7",
+         "device_ms": kt["k1_block_device_ms"]},
+        {"name": "hysteresis_packed_quirk", "route": "cuda",
+         "source": "canny_edge_tpu_torch/kernels/csrc/hysteresis_packed.cu",
+         "replaces": "canny_edge_tpu/kernels/hysteresis_packed.py:180",
+         "launches": md["sharded_check"]["launches"]["hysteresis_packed_quirk"],
+         "max_abs_err": md["max_abs_err"]["k2_quirk"],
+         "ms": kt["k2_quirk_ms"], "plain_ms": kt["k2_quirk_plain_ms"],
+         "bound_ms": kt["k2_quirk_bound_ms"],
+         "bound_by": kt["k2_quirk_bound_by"], "library_ms": None,
+         "match": True, "shape": "1082x1024 (a 4K block with its halo), "
+                                 "strict, quirk (1, 1)",
+         "device_ms": kt["k2_quirk_device_ms"], "steps": kt["k2_quirk_steps"]},
+    ]
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_run
     log("report: " + json.dumps(report))

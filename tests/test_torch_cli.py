@@ -2,7 +2,7 @@
 ``--device cpu``: its PNGs, step images, ``--json`` keys and validation
 messages against the JAX package's CLI (``canny_edge_tpu.cli``) on the same
 inputs, bit for bit; the port's feeder inputs, resume, exit codes, and the
-refusal of the multi-device backend.
+refusal of a sharded mesh that the devices cannot hold.
 """
 
 import contextlib
@@ -156,13 +156,16 @@ def test_validation_messages_equal_jax(argv, msg):
     assert msg in str(ours.value) and str(ours.value) == str(theirs.value)
 
 
-@pytest.mark.parametrize("extra", [["--backend", "sharded"],
-                                   ["--mesh", "1x2x4"]])
+@pytest.mark.parametrize("extra", [["--mesh", "1x2x4"],
+                                   ["--mesh", "2x1x1"]])
 def test_multi_device_refused(extra):
+    """A sharded mesh of another size than the process's one device is
+    refused, as JAX's make_mesh refuses it."""
     with pytest.raises(SystemExit) as e:
         cli.main(["synthetic:16x16", "1.0", "50", "150", "--device", "cpu",
-                  *extra])
-    assert "multi-device path" in str(e.value) and "ROADMAP" in str(e.value)
+                  "--backend", "sharded", *extra])
+    n = "x".join(extra[1].split("x"))
+    assert str(e.value) == f"ERROR: mesh {n} != 1 devices"
 
 
 def test_no_card_exits_with_the_model_message(monkeypatch):
