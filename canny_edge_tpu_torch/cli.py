@@ -8,10 +8,10 @@ compute; each frame runs through the model (default ``fused``: K1 then K2)
 and is written as a PNG; a cursor allows a resume; ``-s`` writes the stage
 images and ``--time`` prints a table of the stages.  ``--device cpu`` runs
 the plain PyTorch versions; without a card and without it the command exits
-with an error (``golden`` always runs on the CPU).  ``--backend sharded``
-runs :class:`.parallel.ShardedCanny` over a ``--mesh DATAxYxX`` of this
-process's device (one block by default; a mesh of more blocks than devices
-is refused, as JAX's ``make_mesh`` refuses it).
+with an error (``golden``, the NumPy oracle, always runs on the CPU).
+``--backend sharded`` runs :class:`.parallel.ShardedCanny` over a ``--mesh
+DATAxYxX`` of this process's device (one block by default; a mesh of more
+blocks than devices is refused, as JAX's ``make_mesh`` refuses it).
 
 Examples::
 
@@ -54,7 +54,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", default="fused",
                    choices=["fused", "xla", "pallas", "sharded", "golden"],
                    help="execution backend (default: fused, K1 then K2; "
-                        "golden: the unpacked stage path on the CPU)")
+                        "golden: the NumPy oracle on the CPU)")
     p.add_argument("--hysteresis", default="component",
                    choices=["component", "strict-reference"],
                    help="hysteresis rule: clean 8-connected components, or "
@@ -192,18 +192,18 @@ def _make_run_batch(cfg, device, first_frame):
     """``(run_batch, device_put)`` for the StreamingRunner; a ``device_put``
     of None stages batches onto ``device``."""
     if cfg.backend == "golden":
-        import torch
+        from . import golden
 
-        from .ops import stages
+        hyst = (golden.hysteresis_strict
+                if cfg.hysteresis_mode == "strict-reference"
+                else golden.hysteresis)
 
         def run_batch(batch):
             outs = []
             for f in batch:
-                sm = stages.gaussian_blur(torch.from_numpy(f), cfg.sigma)
-                nm = stages.nonmax_suppression(*stages.sobel(sm))
-                outs.append(stages.hysteresis(
-                    nm, cfg.min_val, cfg.max_val,
-                    mode=cfg.hysteresis_mode).numpy())
+                sm = golden.gaussian_blur(f, cfg.sigma)
+                nm = golden.nonmax_suppression(*golden.sobel(sm))
+                outs.append(hyst(nm, cfg.min_val, cfg.max_val))
             return np.stack(outs)
 
         return run_batch, lambda b: b
@@ -256,7 +256,7 @@ def main(argv=None) -> int:
     from .kernels.fused import resolve_device
 
     try:            # without a card: the model's message, no silent CPU run
-        # golden is the stage path on the CPU, whatever --device says
+        # golden is the NumPy oracle on the CPU, whatever --device says
         device = resolve_device("cpu" if args.backend == "golden"
                                 else args.device)
     except RuntimeError as e:
@@ -352,17 +352,25 @@ def _chain_first(first, rest):
 
 def _save_steps(args, frame, device) -> None:
     """Save min-max normalized stage images (the reference's ``-s``): the
-    stage path on ``device``, on the CPU for the ``golden`` backend."""
+    stage path on ``device``, the NumPy oracle for the ``golden`` backend."""
     from .io import imageio
-    from .models import CannyTorch
 
-    model = CannyTorch(sigma=args.sigma, device=(
-        "cpu" if args.backend == "golden" else device))
-    _, inter = model.with_intermediates(frame, args.min_val, args.max_val)
+    if args.backend == "golden":
+        from . import golden
+
+        _, inter = golden.canny(frame, args.sigma, args.min_val,
+                                args.max_val, intermediates=True)
+    else:
+        from .models import CannyTorch
+
+        model = CannyTorch(sigma=args.sigma, device=device)
+        _, inter = model.with_intermediates(frame, args.min_val, args.max_val)
+        inter = {k: inter[k].cpu().numpy()
+                 for k in ("smoothed", "magnitude", "nonmax")}
     os.makedirs(args.out_dir, exist_ok=True)
     for name in ("smoothed", "magnitude", "nonmax"):
         imageio.save_png(os.path.join(args.out_dir, f"step_{name}.png"),
-                         imageio.minmax_normalize_u8(inter[name].cpu().numpy()))
+                         imageio.minmax_normalize_u8(inter[name]))
 
 
 if __name__ == "__main__":

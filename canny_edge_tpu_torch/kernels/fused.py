@@ -42,7 +42,9 @@ def to_device(img, device) -> torch.Tensor:
     return frame.to(resolve_device(device))
 
 
-def _taps(kernel_vals, device) -> torch.Tensor:
+def taps_tensor(kernel_vals, device) -> torch.Tensor:
+    """The float32 Gaussian taps (a sequence, an array or a tensor) as a
+    tensor on ``device``; a tensor already there is returned as it is."""
     if isinstance(kernel_vals, torch.Tensor):
         return kernel_vals.to(device=device, dtype=torch.float32)
     return torch.from_numpy(np.asarray(kernel_vals, np.float32).copy()).to(device)
@@ -72,7 +74,7 @@ def canny_fused(img, min_val, max_val, *, kernel_vals, hysteresis_steps=4,
     if strict and hysteresis_impl not in ("packed", "packed-xla"):
         raise ValueError("strict mode: use hysteresis_impl packed/packed-xla")
     img = to_device(img, device)
-    taps = _taps(kernel_vals, img.device)
+    taps = taps_tensor(kernel_vals, img.device)
     if img.dim() == 3:
         return torch.stack([
             canny_fused(f, min_val, max_val, kernel_vals=taps, tile=tile,

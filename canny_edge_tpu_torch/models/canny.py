@@ -1,15 +1,19 @@
-"""Single-device Canny model on PyTorch: ``CannyTPU``'s three backends and
-its ``with_intermediates``.
+"""Single-device Canny on PyTorch: ``canny_edge_tpu/models/canny.py``'s
+functional entry points (:func:`canny_fn`, :func:`canny_fn_packed`,
+:func:`canny_fn_batched`, :func:`canny_with_intermediates`) and the model
+that calls them, :class:`CannyTorch` (``CannyTPU``).
 
-``backend="fused"`` (default): K1 (front end with the threshold compares and
-the 32-to-1 packing) -> K2 (packed hysteresis flood, which also writes the
+``backend="fused"``: K1 (front end with the threshold compares and the
+32-to-1 packing) -> K2 (packed hysteresis flood, which also writes the
 int16 {0, 255} map).  ``"pallas"``: :func:`..kernels.fused.canny_fused` (K1
-in NMS mode, then K2 through its NMS-map entry).  ``"xla"``: the plain front end
-and the plain packed flood, no kernel.  The ``packed`` entry points run the
-fused engines whatever the backend, as in JAX.  On a CUDA device the stages
-are the hand-written kernels; with ``device="cpu"`` the same wrappers run
-their plain PyTorch versions.  ``with_intermediates`` runs the unpacked
-stage path of :mod:`..ops.stages` in plain PyTorch wherever the model lies.
+in NMS mode, then K2 through its NMS-map entry).  ``"xla"``: the plain front
+end and the plain packed flood, no kernel.  The ``packed`` entry points run
+the fused engines whatever the backend, as in JAX.  Every function runs
+where its input tensor lies: on a CUDA tensor the stages are the
+hand-written kernels, on a CPU tensor the same wrappers run their plain
+PyTorch versions; a NumPy input goes to ``device``, the card unless
+``device="cpu"``.  ``with_intermediates`` runs the unpacked stage path of
+:mod:`..ops.stages` in plain PyTorch wherever the input lies.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import numpy as np
 import torch
 
 from ..kernels.frontend import frontend
-from ..kernels.fused import canny_fused, resolve_device
+from ..kernels.fused import canny_fused, resolve_device, taps_tensor, to_device
 from ..kernels.hysteresis_packed import hysteresis_packed
 from ..ops import stages
 from ..ops.gaussian import gaussian_kernel
@@ -43,6 +47,90 @@ def uint8_input(img, device) -> torch.Tensor:
     if isinstance(img, np.ndarray):
         img = torch.from_numpy(np.ascontiguousarray(img))
     return img.to(device)
+
+
+def _strict(hysteresis_mode: str) -> bool:
+    if hysteresis_mode not in MODES:
+        raise ValueError(f"unknown hysteresis mode: {hysteresis_mode!r}")
+    return hysteresis_mode == "strict-reference"
+
+
+def _host_taps(kernel_vals) -> np.ndarray:
+    """The taps as float32 host values (the plain front end's argument)."""
+    if isinstance(kernel_vals, torch.Tensor):
+        return kernel_vals.detach().cpu().numpy().astype(np.float32)
+    return np.asarray(kernel_vals, np.float32)
+
+
+def canny_fn(img, min_val, max_val, *, kernel_vals, hysteresis_steps=4,
+             backend: str = "xla", hysteresis_mode: str = "component",
+             device="cuda") -> torch.Tensor:
+    """uint8 (H, W) or (B, H, W) -> int16 {0, 255}, where ``img`` lies.
+
+    ``img``: a tensor, which runs where it lies, or a NumPy array, which
+    goes to ``device`` (the card by default, ``RuntimeError`` without one;
+    ``"cpu"``).  ``kernel_vals``: the float32 Gaussian taps (a sequence, an
+    array or a tensor; a tensor on ``img``'s device saves a copy a call).
+    ``hysteresis_steps`` is accepted and unused, as by JAX's production
+    backends.  ``backend``: "xla" (the default, as in JAX: the plain front
+    end and the plain packed flood), "fused" (K1 with the thresholds, then K2
+    to int16) or "pallas" (:func:`..kernels.fused.canny_fused`: K1 to the NMS
+    map, then K2).  ``hysteresis_mode``: "component" or "strict-reference".
+    A batch runs frame by frame (:func:`canny_fn_batched`).
+    """
+    del hysteresis_steps
+    strict = _strict(hysteresis_mode)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{BACKENDS}")
+    img = to_device(img, device)
+    if img.dim() == 3:
+        return canny_fn_batched(img, min_val, max_val,
+                                kernel_vals=kernel_vals, backend=backend,
+                                hysteresis_mode=hysteresis_mode)
+    if backend == "fused":
+        h, w = img.shape
+        weak, strong = frontend(img, taps_tensor(kernel_vals, img.device),
+                                (min_val, max_val))
+        return hysteresis_packed(weak, strong, h, w, strict=strict,
+                                 edges_int16=True)
+    if backend == "pallas":
+        return canny_fused(img, min_val, max_val, kernel_vals=kernel_vals,
+                           strict=strict)
+    return hysteresis_packed_plain(frontend_nm(img, _host_taps(kernel_vals)),
+                                   min_val, max_val, strict=strict)
+
+
+def canny_fn_packed(img, min_val, max_val, *, kernel_vals,
+                    hysteresis_mode: str = "component",
+                    device="cuda") -> torch.Tensor:
+    """uint8 (H, W) or (B, H, W) -> uint32 (..., H, ceil(W/32)) edge
+    bitmask (bit b of word j = column 32j + b), where ``img`` lies: K1 with
+    the thresholds, then K2, whose packed state is the output (no unpack).
+    ``img``, ``kernel_vals``, ``device``: as in :func:`canny_fn`.
+    """
+    strict = _strict(hysteresis_mode)
+    img = to_device(img, device)
+    if img.dim() == 3:
+        return torch.stack([
+            canny_fn_packed(f, min_val, max_val, kernel_vals=kernel_vals,
+                            hysteresis_mode=hysteresis_mode) for f in img])
+    h, w = img.shape
+    weak, strong = frontend(img, taps_tensor(kernel_vals, img.device),
+                            (min_val, max_val))
+    return hysteresis_packed(weak, strong, h, w, strict=strict)
+
+
+def canny_fn_batched(imgs, min_val, max_val, *, kernel_vals,
+                     hysteresis_steps=8, hysteresis_mode="component",
+                     backend="xla", device="cuda") -> torch.Tensor:
+    """(B, H, W) uint8 -> (B, H, W) int16 {0, 255}: :func:`canny_fn` a
+    frame at a time, each with its own convergence (JAX's ``lax.map``)."""
+    imgs = to_device(imgs, device)
+    return torch.stack([
+        canny_fn(f, min_val, max_val, kernel_vals=kernel_vals,
+                 hysteresis_steps=hysteresis_steps, backend=backend,
+                 hysteresis_mode=hysteresis_mode) for f in imgs])
 
 
 def canny_with_intermediates(img, min_val, max_val, *, kernel_vals,
@@ -128,48 +216,35 @@ class CannyTorch:
     def window(self) -> int:
         return int(self.kernel.shape[0])
 
-    @property
-    def strict(self) -> bool:
-        return self.hysteresis_mode == "strict-reference"
-
-    def _frame_packed(self, img, min_val, max_val, edges_int16=False):
-        h, w = img.shape
-        weak, strong = frontend(img, self.taps, (min_val, max_val))
-        return hysteresis_packed(weak, strong, h, w, strict=self.strict,
-                                 edges_int16=edges_int16)
-
-    def _frame(self, img, min_val, max_val):
-        """One uint8 (H, W) frame -> int16 {0, 255} through the backend."""
-        if self.backend == "fused":
-            return self._frame_packed(img, min_val, max_val, edges_int16=True)
-        if self.backend == "pallas":
-            return canny_fused(img, min_val, max_val, kernel_vals=self.taps,
-                               strict=self.strict)
-        return hysteresis_packed_plain(frontend_nm(img, self.kernel), min_val,
-                                       max_val, strict=self.strict)
-
     def _input(self, img):
         return uint8_input(img, self.device)
 
     def __call__(self, img, min_val: int, max_val: int):
+        """(H, W) -> (H, W) int16 {0, 255} (:func:`canny_fn`)."""
         self._validate(img, min_val, max_val)
-        return self._frame(self._input(img), min_val, max_val)
+        return canny_fn(self._input(img), min_val, max_val,
+                        kernel_vals=self.taps, backend=self.backend,
+                        hysteresis_mode=self.hysteresis_mode)
 
     def packed(self, img, min_val: int, max_val: int):
-        """Edge bitmask (H, ceil(W/32)) uint32 (bit b of word j = column 32j+b)."""
+        """Edge bitmask (H, ceil(W/32)) uint32 (:func:`canny_fn_packed`)."""
         self._validate(img, min_val, max_val)
-        return self._frame_packed(self._input(img), min_val, max_val)
+        return canny_fn_packed(self._input(img), min_val, max_val,
+                               kernel_vals=self.taps,
+                               hysteresis_mode=self.hysteresis_mode)
 
     def batch(self, imgs, min_val: int, max_val: int):
-        """(B, H, W) -> (B, H, W) int16 {0, 255}, one frame at a time."""
-        imgs = self._batch_input(imgs, min_val, max_val)
-        return torch.stack([self._frame(f, min_val, max_val) for f in imgs])
+        """(B, H, W) -> (B, H, W) int16 {0, 255} (:func:`canny_fn_batched`)."""
+        return canny_fn_batched(self._batch_input(imgs, min_val, max_val),
+                                min_val, max_val, kernel_vals=self.taps,
+                                backend=self.backend,
+                                hysteresis_mode=self.hysteresis_mode)
 
     def batch_packed(self, imgs, min_val: int, max_val: int):
         """(B, H, W) -> (B, H, ceil(W/32)) uint32 edge bitmasks."""
-        imgs = self._batch_input(imgs, min_val, max_val)
-        return torch.stack([self._frame_packed(f, min_val, max_val)
-                            for f in imgs])
+        return canny_fn_packed(self._batch_input(imgs, min_val, max_val),
+                               min_val, max_val, kernel_vals=self.taps,
+                               hysteresis_mode=self.hysteresis_mode)
 
     def with_intermediates(self, img, min_val: int, max_val: int):
         """The stage path on ``device`` with its intermediates: see

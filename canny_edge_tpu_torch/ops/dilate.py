@@ -24,9 +24,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.constants import K3_TILE
 from .packed import cdiv
 
-DEFAULT_TILE = (128, 512)
+DEFAULT_TILE = K3_TILE
 
 
 def tile_shape(h: int, w: int, tile=DEFAULT_TILE) -> tuple[int, int]:

@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.constants import INNER_DILATE_XLA
+
 _M32 = 0xFFFFFFFF
 
 # calls of the plain pack and unpack below, by name: a kernel path on the
@@ -201,7 +203,8 @@ def vflood(e, weak, height: int):
 # ---------------------------------------------------------------------------
 
 def hysteresis_packed_masks(weak_p, strong_p, height: int, width: int,
-                            inner_dilate: int = 4, strict: bool = False,
+                            inner_dilate: int = INNER_DILATE_XLA,
+                            strict: bool = False,
                             quirk_rw=(0, 0)):
     """Packed uint32 weak/strong masks -> (packed edge mask, rounds run).
 

@@ -26,10 +26,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.constants import K2_TILE
 from .packed import (cdiv, dilate_packed, from_words, hflood,
                      strict_fix_packed, to_words, vflood)
 
-DEFAULT_TILE = (8, 32)      # the kernel's tile: 8 rows x 32 words
+DEFAULT_TILE = K2_TILE      # the kernel's tile: 8 rows x 32 words
 
 
 def _local_fixed_point(win, weak_own, fix_at):

@@ -38,14 +38,12 @@ from ..ops.packed import cdiv, hysteresis_packed_masks, unpack_edges
 from ..ops.shifts import shift_cols, shift_rows
 from ..ops.stages import quantize_angle
 from ..ops.window import NMS_OOB, count_vector, isqrt
+from ..utils.constants import INNER_DILATE_XLA
 from .halo import (DATA_AXIS, X_AXIS, Y_AXIS, Mesh, halo_exchange_2d,
                    halo_exchange_cols, halo_exchange_rows)
 
 EDGE = 255
 NOEDGE = 0
-# dilations a round of the plain packed flood (canny_edge_tpu/utils/
-# constants.py:INNER_DILATE_XLA); it changes the rounds, never the result
-INNER_DILATE_XLA = 4
 
 __all__ = ["DATA_AXIS", "Y_AXIS", "X_AXIS", "Mesh", "ShardedBatch",
            "ShardedCanny", "make_mesh"]

@@ -4,8 +4,10 @@ front end -> K2 packed flood -> unpack) and the ``pallas`` backend
 (``canny_fused``: K1 in NMS mode -> K2, K3 tiled dilation or K4 banded
 raster scan); then drives the command line (frames in, batched and staged
 onto the card, K1 -> K2 a frame, PNGs out), the stage path and
-``SobelTorch`` on the card, and the multi-device path (``ShardedCanny``:
-K1 in block mode -> the distributed K2 flood) over meshes on the one card.
+``SobelTorch`` on the card, the multi-device path (``ShardedCanny``: K1 in
+block mode -> the distributed K2 flood) over meshes on the one card, and
+the port's headline bench (``bench_torch.py``: ``canny_fn``'s three
+backends at 1080p, with the roofline of their stages).
 
     python3 chip_smoke.py
 
@@ -76,7 +78,15 @@ Phases (any failure exits non-zero and prints no result):
      fused backend, with K1's block-mode and K2's quirk launches counted
      from 0; ``--backend sharded`` on 8 1080p frames against the fused
      PNGs; wall and device ms of the 4K sharded frame at each mesh and the
-     flood's rounds a frame, printed on a ``multi-device:`` line.
+     flood's rounds a frame, printed on a ``multi-device:`` line;
+ 12. the port's headline bench (``bench_torch.measure``, 3 samples a
+     backend): MP/s of the ``fused``, ``pallas`` and ``xla`` backends at
+     1080p by the checksum slope, their device time, and the roofline of
+     each backend's two stages against its audited floor
+     (``utils/opcount.py``, ``utils/roofline.py``), checked for a plausible
+     share and a front-end audit of 50 to 400 operations a pixel; every
+     bound of the ``kernels`` line held equal to
+     ``utils.roofline.kernel_bounds``; printed on a ``bench:`` line.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Every measured number also goes to
 standard error as one ``report:`` JSON line and to
@@ -99,15 +109,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# H100 SXM published peaks (NVIDIA data sheet): the HBM3 rate, and the float32
-# rate outside the tensor cores.  That rate, 67e12, counts a fused
-# multiply-add as two operations a lane a cycle.  These kernels may not fuse
-# (the blur rounds every product and every sum on its own) and their other
-# work is integer and bit operations, one a lane a cycle: their operation
-# bound takes half the published rate.
-HBM_BYTES_PER_S = 3.35e12
-F32_FMA_OPS_PER_S = 67e12
-SEPARATE_OPS_PER_S = F32_FMA_OPS_PER_S / 2
+from bench_torch import make_image  # noqa: E402  (the headline frame)
+
 SIGMA, MN, MX = 1.4, 30, 90
 SIZES = {"1080p": (1080, 1920), "4k": (2160, 3840)}
 
@@ -123,16 +126,6 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
-
-
-def make_image(h, w, seed=0):
-    """The headline benchmark's frame: sinusoid, disc and noise."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
-    img = 96 + 64 * np.sin(xx / 17.0) * np.cos(yy / 23.0)
-    img += 80 * (((xx - w / 2) ** 2 + (yy - h / 2) ** 2) < (min(h, w) / 3) ** 2)
-    img += rng.normal(0, 6, size=(h, w))
-    return np.clip(img, 0, 255).astype(np.uint8)
 
 
 def snake_nm(h, w):
@@ -508,6 +501,7 @@ def multi_device_phase(dev, time_ms, device_ms, hw=SIZES["1080p"],
     from canny_edge_tpu_torch.ops.gaussian import gaussian_kernel
     from canny_edge_tpu_torch.parallel import ShardedCanny, make_mesh
     from canny_edge_tpu_torch.parallel import multihost
+    from canny_edge_tpu_torch.utils.roofline import kernel_bounds
 
     def sync():
         if dev.type == "cuda":
@@ -754,17 +748,13 @@ def multi_device_phase(dev, time_ms, device_ms, hw=SIZES["1080p"],
     for key, fn in (("k1_block", k1_block), ("k2_quirk", k2_quirk)):
         by = device_ms(fn)
         kt[f"{key}_device_ms"] = sum(by.values()) if by else "not measured"
-    # K1 block: the window read once, the two masks written once; per pixel
-    # as K1 (phase 6).  K2: two masks read and one written, ~40 operations
-    # a word
-    wd = wl // 32
-    for k, b, o in (("k1_block", win.numel() + 2 * hl * wd * 4,
-                     hl * wl * (4 * len(kern) + 45)),
-                    ("k2_quirk", 3 * eh * (ew // 32) * 4,
-                     40 * eh * (ew // 32))):
-        tb, to = b / HBM_BYTES_PER_S * 1e3, o / SEPARATE_OPS_PER_S * 1e3
-        kt[f"{k}_bound_ms"] = max(tb, to)
-        kt[f"{k}_bound_by"] = "bytes" if tb >= to else "operations"
+    # K1 block: the window read once, the two masks written once; K2: two
+    # masks read and one written (utils/roofline.py:kernel_bounds)
+    kb = kernel_bounds(window=len(kern), block=(hl, wl), extended=(eh, ew))
+    for k, key in (("k1_block", "frontend_block"),
+                   ("k2_quirk", "hysteresis_packed_quirk")):
+        kt[f"{k}_bound_ms"] = kb[key]["bound_ms"]
+        kt[f"{k}_bound_by"] = kb[key]["bound_by"]
     rep["kernel_times"] = kt
     rep["max_abs_err"] = {"frontend_block": block_err, "k2_quirk": k2_err}
 
@@ -792,6 +782,45 @@ def multi_device_phase(dev, time_ms, device_ms, hw=SIZES["1080p"],
     return rep
 
 
+def bench_phase(kernels, samples=3, hw=SIZES["1080p"]):
+    """Phase 12: ``bench_torch.measure`` in this process at ``samples``
+    samples a backend.  Checks that every backend gives MP/s, that the best
+    backend's roofline has a ``frontend`` and a ``hysteresis`` row, each at
+    0 < pct_of_sol <= 105 of a named bound, that the front end's audited
+    ``alu`` count is that of a front end (50 to 400 a pixel), and that
+    every ``bound_ms`` of the ``kernels`` line is
+    ``utils.roofline.kernel_bounds``'.  Returns the bench's record."""
+    import bench_torch
+    from canny_edge_tpu_torch.utils.roofline import kernel_bounds
+
+    t0 = time.perf_counter()
+    rec = bench_torch.measure(samples=samples, hw=hw)
+    for b in bench_torch.BACKENDS:
+        check(rec["backends"][b]["mp_per_s"] > 0,
+              f"bench: backend {b} gave {rec['backends'][b]}")
+    rows = {r["stage"]: r for r in rec["roofline"]}
+    check(set(rows) == {"frontend", "hysteresis"},
+          f"bench: the {rec['best_backend']} roofline has rows {list(rows)}")
+    for r in rows.values():
+        check(r["pct_of_sol"] is not None and 0 < r["pct_of_sol"] <= 105
+              and r["bound"] in ("alu", "hbm"), f"bench: roofline row {r}")
+    alu = rows["frontend"]["audit"]["alu"]
+    check(50 <= alu <= 400, f"bench: the front end's audited alu is {alu} "
+          f"a pixel")
+    kb = kernel_bounds()
+    for k in kernels:
+        want = kb[k["name"]]
+        check(k["bound_ms"] == want["bound_ms"]
+              and k["bound_by"] == want["bound_by"],
+              f"bench: {k['name']} bound {k['bound_ms']} {k['bound_by']}, "
+              f"kernel_bounds {want}")
+    check(kernels[1]["nm_int16_bound_ms"]
+          == kb["hysteresis_packed_nm_int16"]["bound_ms"],
+          "bench: K2's NMS-map bound differs from kernel_bounds")
+    rec["s"] = time.perf_counter() - t0
+    return rec
+
+
 def main():
     import torch
 
@@ -810,6 +839,7 @@ def main():
     from canny_edge_tpu_torch.ops import packed_tiles as Tl
     from canny_edge_tpu_torch.ops import window as Wn
     from canny_edge_tpu_torch.ops.gaussian import gaussian_kernel
+    from canny_edge_tpu_torch.utils.roofline import kernel_bounds
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -1091,26 +1121,13 @@ def main():
             t[f"{key}_ms"] = time_ms(fn, 50)
         _, steps = khp.hysteresis_packed(weak, strong, h, w, return_steps=True)
         t["k2_steps"] = int(steps)
-        wd = -(-w // 32)
-        window = len(kern)
-        # K1: each input byte read once, the two packed masks written once;
-        # per pixel 2 passes x (window mul + window add) + 2 divides + floor,
-        # ~14 Sobel, ~10 magnitude, ~16 NMS and 2 threshold operations
-        k1_bytes = h * w + 2 * h * wd * 4
-        k1_ops = h * w * (4 * window + 45)
-        # K2: two masks read, one written; one dilation + row and column
-        # flood over every word (~40 operations a word) is the least work
-        k2_bytes = 3 * h * wd * 4
-        k2_ops = 40 * h * wd
-        # K2 from an NMS map to int16 edges: 2 + 2 bytes a pixel, and two
-        # compares and a select a pixel more
-        k2n_bytes = 4 * h * w
-        k2n_ops = k2_ops + 3 * h * w
-        for k, b, o in (("k1", k1_bytes, k1_ops), ("k2", k2_bytes, k2_ops),
-                        ("k2_nm_int16", k2n_bytes, k2n_ops)):
-            tb, to = b / HBM_BYTES_PER_S * 1e3, o / SEPARATE_OPS_PER_S * 1e3
-            t[f"{k}_bound_ms"] = max(tb, to)
-            t[f"{k}_bound_by"] = "bytes" if tb >= to else "operations"
+        # each input byte read once, each output byte written once, the hand
+        # model's operations (utils/roofline.py:kernel_bounds)
+        kb = kernel_bounds(hw=(h, w), window=len(kern))
+        for k, key in (("k1", "frontend"), ("k2", "hysteresis_packed"),
+                       ("k2_nm_int16", "hysteresis_packed_nm_int16")):
+            t[f"{k}_bound_ms"] = kb[key]["bound_ms"]
+            t[f"{k}_bound_by"] = kb[key]["bound_by"]
         times[name] = t
         log(f"times {name}: {t}")
     _, (sw, ss), h, w = flood_cases["snake_1080p"][:4]
@@ -1396,15 +1413,12 @@ def main():
                 img, MN, MX, kernel_vals=taps14, hysteresis_impl=impl), 10, 3)
         for b, model in pallas_models.items():
             t[f"frame_model_{b}_ms"] = time_ms(lambda: model(img, MN, MX), 10, 3)
-        # K3 and K4: nm read once (2 B/px), int16 edges written once
-        # (2 B/px); per pixel two compares and one select, per packed word
-        # one dilation and row/column flood (~40 operations)
-        eng_bytes = 4 * h * w
-        eng_ops = 3 * h * w + 40 * h * (-(-w // 32))
-        tb, to = eng_bytes / HBM_BYTES_PER_S * 1e3, eng_ops / SEPARATE_OPS_PER_S * 1e3
-        for k in ("k3", "k4"):
-            t[f"{k}_bound_ms"] = max(tb, to)
-            t[f"{k}_bound_by"] = "bytes" if tb >= to else "operations"
+        # K3 and K4: nm read once (2 B/px), int16 edges written once (2 B/px)
+        kb = kernel_bounds(hw=(h, w))
+        for k, key in (("k3", "hysteresis_dilate"),
+                       ("k4", "hysteresis_banded")):
+            t[f"{k}_bound_ms"] = kb[key]["bound_ms"]
+            t[f"{k}_bound_by"] = kb[key]["bound_by"]
         log(f"times {name}: {t}")
     sn = chains["snake_1080p"]
     times["snake_1080p"]["k2_nm_int16_ms"] = time_ms(
@@ -1526,12 +1540,27 @@ def main():
          "device_ms": kt["k2_quirk_device_ms"], "steps": kt["k2_quirk_steps"]},
     ]
     report["kernels"] = kernels
+
+    # ---- 12. the port's headline bench, in this process ----
+    bench = bench_phase(kernels)
+    report["bench"] = bench
     report["total_s"] = time.perf_counter() - t_run
     log("report: " + json.dumps(report))
     out_dir = os.path.join(ROOT, "chiprun_out")     # listed in .gitignore
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_report.json"), "w") as f:
         json.dump(report, f, indent=1)
+    roofline = {b: [{k: r[k] for k in (
+        "stage", "ms", "sol_ms", "pct_of_sol", "bound", "floor_model",
+        "est_ops_per_px")} | {"audited_alu": (r["audit"] or {}).get("alu")}
+        for r in rows] for b, rows in bench["roofline_by_backend"].items()}
+    print("bench: " + json.dumps({
+        "card": bench["card"], "metric": bench["metric"],
+        "value": bench["value"], "best_backend": bench["best_backend"],
+        "backends": {b: {k: v[k] for k in ("mp_per_s", "ms_median",
+                                          "device_ms", "frontend_device_ms")}
+                     for b, v in bench["backends"].items()},
+        "roofline": roofline, "s": bench["s"]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,9 @@
   ``packed`` bit-equal to JAX's ``CannyTPU`` on the CPU (the card tests hold
   the card against the CPU);
 * ``--backend golden`` runs without ``--device`` on a host with no card;
-* every name that ``canny_edge_tpu.{ops,kernels,utils,parallel}`` exports
-  has its counterpart in the port's subpackage of the same name.
+* every name that ``canny_edge_tpu.{ops,kernels,utils,parallel,models,
+  golden}`` exports has its counterpart in the port's subpackage of the
+  same name.
 """
 
 import ast
@@ -102,7 +103,9 @@ def _jax_exports(sub):
             if isinstance(node, ast.ImportFrom) for a in node.names]
 
 
-# JAX's name -> the port's object it stands for, where the two differ
+# JAX's name -> the port's object it stands for, where the two differ; a
+# name the port does not have (a class named for its framework) is looked up
+# under the counterpart's own name
 COUNTERPARTS = {
     "ops": {"sobel": "ops.stages.sobel", "xy_gradient": "ops.window.sobel",
             "isqrt_int32": "ops.window.isqrt",
@@ -114,6 +117,9 @@ COUNTERPARTS = {
     "utils": {"profile_stages": "utils.timing.profile_stages"},
     "parallel": {"ShardedCanny": "parallel.sharded.ShardedCanny",
                  "halo_exchange_2d": "parallel.halo.halo_exchange_2d"},
+    "models": {"CannyTPU": "models.canny.CannyTorch",
+               "SobelTPU": "models.sobel.SobelTorch"},
+    "golden": {},
 }
 
 
@@ -122,14 +128,18 @@ def _resolve(path):
     return getattr(importlib.import_module(mod), name)
 
 
-@pytest.mark.parametrize("sub", ["ops", "kernels", "utils", "parallel"])
+@pytest.mark.parametrize("sub", ["ops", "kernels", "utils", "parallel",
+                                 "models", "golden"])
 def test_every_jax_export_has_its_counterpart(sub):
     port = importlib.import_module(f"canny_edge_tpu_torch.{sub}")
     names = _jax_exports(sub)
     assert names
     for name in names:
-        assert hasattr(port, name), f"{sub}.{name}"
-        if name in COUNTERPARTS[sub]:
-            assert getattr(port, name) is _resolve(COUNTERPARTS[sub][name])
+        path = COUNTERPARTS[sub].get(name)
+        own = (name if path is None or hasattr(port, name)
+               else path.rpartition(".")[2])
+        assert hasattr(port, own), f"{sub}.{name}"
+        if path is not None:
+            assert getattr(port, own) is _resolve(path)
     if sub == "ops":
         from canny_edge_tpu_torch.ops import sobel  # noqa: F401
