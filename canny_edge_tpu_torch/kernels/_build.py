@@ -33,30 +33,31 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
 SIGNATURES = {
     "frontend": {
-        "canny_frontend": [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+        "canny_frontend": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P,
+                           _P],
         "canny_frontend_block": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I,
                                  _I, _I, _P, _P, _P, _P],
         "canny_frontend_max_window": [],
     },
     "hysteresis_packed": {
         "canny_hysteresis_packed": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I,
-                                    _I, _I, _I, _P, _L, _P],
-        "canny_hysteresis_packed_scratch_words": [_I, _I],
+                                    _I, _I, _I, _I, _P, _L, _P],
+        "canny_hysteresis_packed_scratch_words": [_I, _I, _I],
     },
     "hysteresis_dilate": {
         "canny_dilate_smem_bytes": [_I, _I],
         "canny_dilate_smem_limit": [],
-        "canny_dilate_scratch_words": [_I, _I, _I, _I],
-        "canny_dilate": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P,
-                         _L, _P],
+        "canny_dilate_scratch_words": [_I, _I, _I, _I, _I],
+        "canny_dilate": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _P, _L, _P],
     },
     "hysteresis_banded": {
         "canny_banded_smem_bytes": [_I, _I],
         "canny_banded_smem_limit": [],
         "canny_banded_max_width": [],
         "canny_banded_scratch_words": [],
-        "canny_banded": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _L,
-                         _P],
+        "canny_banded": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                         _L, _P],
     },
 }
 

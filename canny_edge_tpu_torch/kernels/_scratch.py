@@ -1,10 +1,11 @@
 """Scratch of the cooperative hysteresis kernels (K2, K3, K4), kept between
 calls.
 
-Each kernel keeps, per device, stream and configuration (shape, tile or
-band), its 64-bit control words (dirty flags, "anything changed" words and
-the counts a call leaves behind) and its packed ``(H, ceil(W/32))`` uint32
-buffers.  The control words are zeroed once: every launch takes a fresh
+Each kernel keeps, per device, stream and configuration (the frames B and
+the shape ``(H, W)`` of a call, tile or band), its 64-bit control words
+(dirty flags, "anything changed" words and the counts a call leaves behind)
+and its packed ``(B H, ceil(W/32))`` uint32 buffers.  B is part of the key:
+a batch and a frame of the same ``B H W`` pixels never share an entry.  The control words are zeroed once: every launch takes a fresh
 token (a sequence number shifted past any step or sweep count), so a flag of
 an earlier call never reads as set and nothing is cleared between calls.
 Two calls on one stream run in order, so they may share an entry; another

@@ -53,6 +53,13 @@
 // The whole image is the case halo = 0, (row0, col0) = (0, 0), (OH, OW) =
 // (H, W): one kernel body for both.
 //
+// Batch: a (B, H, W) batch is one launch, blockIdx.z the frame (B <= 65535,
+// the grid's z limit); the counterpart of jax.vmap over the Pallas kernel
+// (canny_edge_tpu/kernels/fused.py:47), which gives its grid a batch axis.
+// Frame z reads src + z H W and writes its own (H, W) map or (H, ceil(W/32))
+// masks.  Frame z starts on a 16-byte boundary only when H W % 16 == 0, so
+// each block decides the 16-byte loads from its own frame's address.
+//
 // Exactness: every product and sum is rounded on its own (__fmul_rn,
 // __fadd_rn, and the build passes --fmad=false), taps accumulate in
 // ascending order, the renormalization divide is __fdiv_rn, and the back
@@ -138,11 +145,12 @@ __device__ __forceinline__ int mag_dir(float gx, float gy) {
 }
 
 // Where the kernel reads and writes: the input window (sh, sw) whose texel
-// (halo, halo) is output pixel (0, 0), the (oh, ow) output block, and the
-// block's place (row0, col0) in the (H, W) image.
+// (halo, halo) is output pixel (0, 0), the (oh, ow) output block, the
+// block's place (row0, col0) in the (H, W) image, and the number of frames
+// B (windows sh x sw apart in src, outputs one map or mask pair apart).
 struct Frame {
   const uint8_t* src;
-  int sh, sw, halo, oh, ow, row0, col0, H, W;
+  int sh, sw, halo, oh, ow, row0, col0, H, W, B;
 };
 
 template <int WINDOW>
@@ -171,6 +179,10 @@ frontend_kernel(Frame f, const float* __restrict__ taps, int window_rt,
   const int ty0 = blockIdx.y * TILE_H, tx0 = blockIdx.x * TILE_W;
   const int row0 = f.row0 + ty0, col0 = f.col0 + tx0;
   const int tid = threadIdx.x;
+  // this block's frame of a batch: its window, and 16-byte loads only if it
+  // starts on a 16-byte boundary (the rows are then too: vec_ok)
+  const uint8_t* fsrc = f.src + (size_t)blockIdx.z * f.sh * f.sw;
+  const bool vec = vec_ok && (reinterpret_cast<uintptr_t>(fsrc) & 15u) == 0;
 
   float k[WINDOW > 0 ? WINDOW : 1];
   if constexpr (WINDOW > 0) {
@@ -193,13 +205,13 @@ frontend_kernel(Frame f, const float* __restrict__ taps, int window_rt,
       const int gr = row0 - 2 - c + y, gc = col0 - G.org + 16 * q;
       uint8_t* dst = in + y * G.in_w + 16 * q;
       const bool row_in = wr >= 0 && wr < f.sh && gr >= 0 && gr < H;
-      if (vec_ok && row_in && wc >= 0 && wc + 16 <= f.sw && gc >= 0
+      if (vec && row_in && wc >= 0 && wc + 16 <= f.sw && gc >= 0
           && gc + 16 <= W) {
-        __pipeline_memcpy_async(dst, f.src + (size_t)wr * f.sw + wc, 16);
+        __pipeline_memcpy_async(dst, fsrc + (size_t)wr * f.sw + wc, 16);
       } else {
         uint32_t wds[4] = {0u, 0u, 0u, 0u};
         if (row_in) {
-          const uint8_t* src = f.src + (size_t)wr * f.sw;
+          const uint8_t* src = fsrc + (size_t)wr * f.sw;
 #pragma unroll
           for (int b = 0; b < 16; ++b) {
             const int cc = wc + b, gcc = gc + b;
@@ -401,8 +413,9 @@ frontend_kernel(Frame f, const float* __restrict__ taps, int window_rt,
     constexpr uint32_t OFFS = (uint32_t)MAG_W | (1u << 8)
                               | ((uint32_t)(MAG_W - 1) << 16)
                               | ((uint32_t)(MAG_W + 1) << 24);
-    const size_t o = packed ? (size_t)(ty0 + y0) * wd + word
-                            : (size_t)(ty0 + y0) * f.ow + lc;
+    const size_t o = packed
+        ? ((size_t)blockIdx.z * f.oh + ty0 + y0) * wd + word
+        : ((size_t)blockIdx.z * f.oh + ty0 + y0) * f.ow + lc;
     uint32_t* wp = weak + o;
     uint32_t* sp = strong + o;
     int16_t* np = nm_out + o;
@@ -461,10 +474,10 @@ cudaError_t launch(const Frame& f, const float* taps, int window, int packed,
     }
   }
   // 16-byte loads: every window row and the tile's first column start on a
-  // 16-byte boundary
-  const int vec_ok = f.sw % 16 == 0 && f.halo % 16 == 0
-                     && reinterpret_cast<uintptr_t>(f.src) % 16 == 0;
-  const dim3 grid((f.ow + TILE_W - 1) / TILE_W, (f.oh + TILE_H - 1) / TILE_H);
+  // 16-byte boundary if the frame does (each block tests its frame)
+  const int vec_ok = f.sw % 16 == 0 && f.halo % 16 == 0;
+  const dim3 grid((f.ow + TILE_W - 1) / TILE_W, (f.oh + TILE_H - 1) / TILE_H,
+                  f.B);
   frontend_kernel<WINDOW><<<grid, THREADS, bytes, stream>>>(
       f, taps, window, packed, mn, mx, vec_ok, nm_out, weak, strong);
   return cudaGetLastError();
@@ -473,6 +486,7 @@ cudaError_t launch(const Frame& f, const float* taps, int window, int packed,
 int run(const Frame& f, const void* taps, int window, int packed, int mn,
         int mx, void* nm_out, void* weak, void* strong, void* stream) {
   if (f.oh <= 0 || f.ow <= 0 || f.H <= 0 || f.W <= 0 || f.halo < 0
+      || f.B < 1 || f.B > 65535
       || f.sh != f.oh + 2 * f.halo || f.sw != f.ow + 2 * f.halo
       || window < 1 || window % 2 == 0)
     return (int)cudaErrorInvalidValue;
@@ -506,14 +520,15 @@ int canny_frontend_max_window() {
   return w < 3 ? 0 : w;
 }
 
-// img: uint8 (H, W); taps: float32 (window); packed == 0 -> nm_out int16
-// (H, W); packed != 0 -> weak/strong uint32 (H, ceil(W/32)).  Launches on
-// `stream` and returns cudaGetLastError().  Windows 3..15 run their own
-// unrolled instantiation, every other odd window the generic one.
-int canny_frontend(const void* img, int H, int W, const void* taps, int window,
-                   int packed, int mn, int mx, void* nm_out, void* weak,
-                   void* strong, void* stream) {
-  const Frame f{(const uint8_t*)img, H, W, 0, H, W, 0, 0, H, W};
+// img: uint8 (B, H, W), 1 <= B <= 65535; taps: float32 (window); packed ==
+// 0 -> nm_out int16 (B, H, W); packed != 0 -> weak/strong uint32 (B, H,
+// ceil(W/32)).  One launch on `stream` for the batch; returns
+// cudaGetLastError().  Windows 3..15 run their own unrolled instantiation,
+// every other odd window the generic one.
+int canny_frontend(const void* img, int B, int H, int W, const void* taps,
+                   int window, int packed, int mn, int mx, void* nm_out,
+                   void* weak, void* strong, void* stream) {
+  const Frame f{(const uint8_t*)img, H, W, 0, H, W, 0, 0, H, W, B};
   return run(f, taps, window, packed, mn, mx, nm_out, weak, strong, stream);
 }
 
@@ -528,7 +543,7 @@ int canny_frontend_block(const void* window_u8, int oh, int ow, int halo,
                          int window, int packed, int mn, int mx, void* nm_out,
                          void* weak, void* strong, void* stream) {
   const Frame f{(const uint8_t*)window_u8, oh + 2 * halo, ow + 2 * halo, halo,
-                oh, ow, row0, col0, H, W};
+                oh, ow, row0, col0, H, W, 1};
   return run(f, taps, window, packed, mn, mx, nm_out, weak, strong, stream);
 }
 

@@ -69,6 +69,18 @@
 // Shared memory: two masks of (band_h + 2) x ceil(W/32) words a band (127 KB
 // for band_h 64 at W = 7680) and two flag bits a row.  A band that does not
 // fit is refused by the wrapper.
+//
+// Batch: B frames of (H, W) are one launch, the counterpart of jax.vmap over
+// the Pallas sweeps (canny_edge_tpu/kernels/fused.py:47).  The bands are
+// indexed by (frame, band), every frame cut alike; a band's halo rows are
+// its own frame's (zero past the frame), so no band spans two frames, and
+// the skipped steps and the rounds are a band's own.  A sweep runs every
+// band of every frame and needs_more reads every frame's band borders: a
+// frame that has converged is swept again and stays as it is (its state is
+// the fixed point: a round changes nothing and its borders grow nothing),
+// so each frame ends as it would alone, and the launch sweeps as often as
+// its slowest frame needs.  Pack and unpack see the batch as one (B H, W)
+// image.
 
 #include <cooperative_groups.h>
 #include <type_traits>
@@ -100,7 +112,7 @@ struct Args {
   uint32_t* e0;
   uint32_t* e1;
   int16_t* out;        // int16 {0, 255} (H, W)
-  int H, W, band_h, slots;
+  int B, H, W, band_h, slots;
   u64* more;           // 2 "needs more" tokens
   int* stats;          // sweeps, most rounds of a band, rounds summed, bands run
   u64 token;           // launch sequence number << 32
@@ -115,21 +127,24 @@ __device__ __forceinline__ void count_rounds(int* stats, int rounds) {
 }
 
 // one dilation step of the new mask e: does it add a pixel to the first or
-// the last row of a band?  (No other row can gain: its band has settled.)
+// the last row of a band of any frame?  (No other row can gain: its band has
+// settled.)
 __device__ void border_growth(const Args& a, const uint32_t* e, u64* more,
                               u64 tok, size_t gtid, size_t nthreads) {
   const int H = a.H, wd = (a.W + 31) / 32, nb = cdiv(H, a.band_h);
-  const size_t n = (size_t)2 * nb * wd;
+  const size_t n = (size_t)2 * a.B * nb * wd;
   for (size_t i = gtid; i < n; i += nthreads) {
-    const int k = (int)(i / wd), j = (int)(i % wd), b = k >> 1;
+    const int k = (int)(i / wd), j = (int)(i % wd);
+    const int fr = (k >> 1) / nb, b = (k >> 1) % nb;     // frame, band
     const int r = (k & 1) ? min(H, (b + 1) * a.band_h) - 1 : b * a.band_h;
+    const uint32_t* fe = e + (size_t)fr * H * wd;
     uint32_t h = 0u;
     for (int rr = max(r - 1, 0); rr <= min(r + 1, H - 1); ++rr) {
-      const uint32_t* row = e + (size_t)rr * wd;
+      const uint32_t* row = fe + (size_t)rr * wd;
       h |= hrow(j > 0 ? __ldcg(row + j - 1) : 0u, __ldcg(row + j),
                 j + 1 < wd ? __ldcg(row + j + 1) : 0u);
     }
-    const size_t at = (size_t)r * wd + j;
+    const size_t at = ((size_t)fr * H + r) * wd + j;
     if (__ldcg(a.weak + at) & h & ~__ldcg(e + at)) *more = tok;
   }
 }
@@ -142,7 +157,7 @@ __device__ void run_call(const Args& a, Sweep sweep) {
   const size_t gtid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t nthreads = (size_t)gridDim.x * blockDim.x;
   if (gtid == 0) a.stats[1] = a.stats[2] = a.stats[3] = 0;
-  pack_any(a.nm, a.nm_bytes, a.H, a.W, a.lo, a.hi, a.weak, a.e0, gtid,
+  pack_any(a.nm, a.nm_bytes, a.B * a.H, a.W, a.lo, a.hi, a.weak, a.e0, gtid,
            nthreads);
   grid.sync();
   int s = 0;
@@ -159,7 +174,8 @@ __device__ void run_call(const Args& a, Sweep sweep) {
     if (!more) break;
   }
   if (gtid == 0) a.stats[0] = s;
-  unpack_phase((s & 1) ? a.e1 : a.e0, a.H, a.W, a.out, gtid, nthreads);
+  unpack_phase((s & 1) ? a.e1 : a.e0, a.B * a.H, a.W, a.out, gtid,
+               nthreads);
 }
 
 // ---------------------------------------------------------------------------
@@ -344,7 +360,8 @@ template <int WPL>
 __global__ void __launch_bounds__(WARP_THREADS, 1) band_warp_kernel(Args a) {
   extern __shared__ uint32_t smem[];
   const int H = a.H, wd = (a.W + 31) / 32, band_h = a.band_h;
-  const int R = band_h + 2, nb = cdiv(H, band_h), nfw = (R + 31) / 32;
+  const int R = band_h + 2, nbf = cdiv(H, band_h), nfw = (R + 31) / 32;
+  const int nb = a.B * nbf;            // bands of all frames
   const int slot_words = 2 * R * wd + 2 * nfw;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int stride = a.slots * gridDim.x;
@@ -359,16 +376,17 @@ __global__ void __launch_bounds__(WARP_THREADS, 1) band_warp_kernel(Args a) {
         if (b >= nb) break;
         uint32_t* E = smem + (size_t)s * slot_words;
         uint32_t* Wk = E + R * wd;
-        const int top = b * band_h - 1;  // global row of band row 0
+        const size_t f0 = (size_t)(b / nbf) * H * wd;   // its frame's words
+        const int top = (b % nbf) * band_h - 1;  // frame row of band row 0
         // the band's R rows are one run of R * wd words in device memory
-        // (but for the rows off the image); four loads a mask in flight
+        // (but for the rows off the frame); four loads a mask in flight
         const long long g0 = (long long)top * wd, gend = (long long)H * wd;
 #pragma unroll 4
         for (int i = threadIdx.x; i < R * wd; i += WARP_THREADS) {
           const long long g = g0 + i;
           const bool in = g >= 0 && g < gend;
-          E[i] = in ? __ldcg(ein + g) : 0u;
-          Wk[i] = in ? __ldcg(a.weak + g) : 0u;
+          E[i] = in ? __ldcg(ein + f0 + g) : 0u;
+          Wk[i] = in ? __ldcg(a.weak + f0 + g) : 0u;
         }
       }
       __syncthreads();
@@ -385,11 +403,12 @@ __global__ void __launch_bounds__(WARP_THREADS, 1) band_warp_kernel(Args a) {
         const int b = base + s * gridDim.x + blockIdx.x;
         if (b >= nb) break;
         const uint32_t* E = smem + (size_t)s * slot_words;
-        const int top = b * band_h - 1;
+        uint32_t* fout = eout + (size_t)(b / nbf) * H * wd;
+        const int top = (b % nbf) * band_h - 1;
         for (int y = 1 + warp; y <= band_h && top + y < H;
              y += WARP_THREADS / 32)
           for (int k = lane; k < wd; k += 32)
-            eout[(size_t)(top + y) * wd + k] = E[y * wd + k];
+            fout[(size_t)(top + y) * wd + k] = E[y * wd + k];
       }
     }
   });
@@ -456,7 +475,8 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1) band_block_kernel(Args a) {
   extern __shared__ uint32_t smem[];
   __shared__ uint32_t sg_up[32], sg_dn[32], sp[32];   // static_bytes()
   const int H = a.H, wd = (a.W + 31) / 32, band_h = a.band_h;
-  const int R = band_h + 2, nb = cdiv(H, band_h);
+  const int R = band_h + 2, nbf = cdiv(H, band_h);
+  const int nb = a.B * nbf;       // bands of all frames
   uint32_t* E = smem;             // band edges, R x wd words
   uint32_t* Wk = smem + R * wd;   // band weak
   const int j = threadIdx.x;
@@ -478,12 +498,13 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1) band_block_kernel(Args a) {
 
   run_call(a, [&](const uint32_t* ein, uint32_t* eout) {
     for (int b = blockIdx.x; b < nb; b += gridDim.x) {
-      const int top = b * band_h - 1;   // global row of band row 0
+      const size_t f0 = (size_t)(b / nbf) * H * wd;   // its frame's words
+      const int top = (b % nbf) * band_h - 1;  // frame row of band row 0
       __syncthreads();                  // the stores of the band before
       for (int i = j; i < R * wd; i += BLOCK_THREADS) {
         const int gr = top + i / wd;
         const bool in = gr >= 0 && gr < H;
-        const size_t g = (size_t)gr * wd + i % wd;
+        const size_t g = f0 + (size_t)gr * wd + i % wd;
         E[i] = in ? __ldcg(ein + g) : 0u;
         Wk[i] = in ? __ldcg(a.weak + g) : 0u;
       }
@@ -510,7 +531,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1) band_block_kernel(Args a) {
       if (j == 0) count_rounds(a.stats, rounds);
       if (col)
         for (int r = 1; r <= band_h && top + r < H; ++r)
-          eout[(size_t)(top + r) * wd + j] = E[r * wd + j];
+          eout[f0 + (size_t)(top + r) * wd + j] = E[r * wd + j];
     }
   });
 }
@@ -553,19 +574,21 @@ int canny_banded_smem_limit() { return masks::smem_optin_limit(); }
 int canny_banded_max_width() { return 32 * BLOCK_THREADS; }
 int canny_banded_scratch_words() { return 4; }
 
-// The whole engine, one cooperative launch on `stream`: nm (int16 for
-// nm_bytes 2, int32 for 4; H x W) -> out (int16 {0, 255}, H x W) with weak =
-// nm >= lo, seeds = nm >= hi.  weak, e0 and e1 are (H, ceil(W/32)) uint32
-// scratch.  ctl: canny_banded_scratch_words() 64-bit words, zeroed once by
-// the caller: two "needs more" tokens, then four ints the call leaves
-// behind: sweeps, the most rounds of a band, the rounds of all bands summed,
-// the bands run.  token: launch sequence number << 32, never reused.
-// Returns cudaGetLastError().
+// The whole engine for B frames (B = 1: one image), one cooperative launch
+// on `stream`: nm (int16 for nm_bytes 2, int32 for 4; B x H x W) -> out
+// (int16 {0, 255}, B x H x W) with weak = nm >= lo, seeds = nm >= hi.  weak,
+// e0 and e1 are (B, H, ceil(W/32)) uint32 scratch.  ctl:
+// canny_banded_scratch_words() 64-bit words, zeroed once by the caller: two
+// "needs more" tokens, then four ints the call leaves behind: sweeps (the
+// most of any frame), the most rounds of a band, the rounds of all bands
+// summed, the bands run.  token: launch sequence number << 32, never
+// reused.  Returns cudaGetLastError().
 int canny_banded(const void* nm, int nm_bytes, int lo, int hi, void* weak,
-                 void* e0, void* e1, void* out, int H, int W, int band_h,
-                 void* ctl, unsigned long long token, void* stream) {
+                 void* e0, void* e1, void* out, int B, int H, int W,
+                 int band_h, void* ctl, unsigned long long token,
+                 void* stream) {
   const int wd = (W + 31) / 32;
-  if (H <= 0 || W <= 0 || band_h <= 0 || wd > BLOCK_THREADS
+  if (B <= 0 || H <= 0 || W <= 0 || band_h <= 0 || wd > BLOCK_THREADS
       || (nm_bytes != 2 && nm_bytes != 4))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSuccess;
@@ -585,6 +608,7 @@ int canny_banded(const void* nm, int nm_bytes, int lo, int hi, void* weak,
   a.e0 = (uint32_t*)e0;
   a.e1 = (uint32_t*)e1;
   a.out = (int16_t*)out;
+  a.B = B;
   a.H = H;
   a.W = W;
   a.band_h = band_h;
@@ -593,8 +617,10 @@ int canny_banded(const void* nm, int nm_bytes, int lo, int hi, void* weak,
   a.stats = (int*)(a.more + 2);
   a.token = token;
 
-  const int nb = (H + band_h - 1) / band_h;
-  const long long nwords = (long long)H * wd;
+  const long long nbl = (long long)B * ((H + band_h - 1) / band_h);
+  if (nbl > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int nb = (int)nbl;             // bands of all frames
+  const long long nwords = (long long)B * H * wd;
   const void* kernel;
   int threads;
   size_t smem = per_band;

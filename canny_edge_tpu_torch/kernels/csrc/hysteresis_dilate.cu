@@ -59,6 +59,16 @@
 // Shared memory: three masks of (th + 2) x ceil((tw + 2) / 32) words (weak,
 // edges, edges before the sweep).  A tile that does not fit is refused by
 // the wrapper.
+//
+// Batch: B frames of (H, W) are one launch, the counterpart of jax.vmap over
+// the Pallas sweeps (canny_edge_tpu/kernels/fused.py:47).  The tiles are
+// indexed by (frame, tile): a tile's window and halo read its own frame's
+// words (zero past the frame's rows, as past the image's), and its dirty
+// flags are its frame's.  The sweeps are double buffered and deterministic,
+// so each frame's states are its single-frame states; once a frame has
+// converged none of its tiles is dirty and both buffers hold its result.
+// The launch sweeps until no frame changes: its count is the largest
+// single-frame count.  Pack and unpack see the batch as one (B H, W) image.
 
 #include <cooperative_groups.h>
 
@@ -85,8 +95,8 @@ struct Args {
   uint32_t* e0;
   uint32_t* e1;
   int16_t* out;        // int16 {0, 255} (H, W)
-  int H, W, th, tw;
-  u64* flags;          // 2 x ntiles "changed in that sweep" tokens
+  int B, H, W, th, tw;
+  u64* flags;          // 2 x B x ntiles "changed in that sweep" tokens
   u64* any;            // 2 "a tile changed" tokens
   int* stats;          // sweeps, tile floods run, local rounds summed
   u64 token;           // launch sequence number << 32
@@ -157,7 +167,8 @@ __global__ void __launch_bounds__(THREADS, 1) dilate_kernel(Args a) {
   uint32_t* e_s = smem + n;       // window edges
   uint32_t* o_s = smem + 2 * n;   // window edges before the sweep
   const int ntx = (W + tw - 1) / tw, nty = (H + th - 1) / th;
-  const int ntiles = ntx * nty;
+  const int ntiles = ntx * nty, btiles = a.B * ntiles;
+  const size_t fwords = (size_t)H * wd;     // a frame's words
   const int tid = threadIdx.x;
   const size_t gtid = (size_t)blockIdx.x * THREADS + tid;
   const size_t nthreads = (size_t)gridDim.x * THREADS;
@@ -167,8 +178,9 @@ __global__ void __launch_bounds__(THREADS, 1) dilate_kernel(Args a) {
   const uint32_t tail_mask = tail == 32 ? FULL : (1u << tail) - 1u;
 
   if (gtid == 0) a.stats[1] = a.stats[2] = 0;
-  pack_any(a.nm, a.nm_bytes, H, W, a.lo, a.hi, a.weak, a.e0, gtid, nthreads);
-  for (size_t i = gtid; i < (size_t)H * wd; i += nthreads) a.e1[i] = 0u;
+  pack_any(a.nm, a.nm_bytes, a.B * H, W, a.lo, a.hi, a.weak, a.e0, gtid,
+           nthreads);
+  for (size_t i = gtid; i < a.B * fwords; i += nthreads) a.e1[i] = 0u;
   grid.sync();
 
   int sweep = 0;
@@ -176,9 +188,16 @@ __global__ void __launch_bounds__(THREADS, 1) dilate_kernel(Args a) {
     const u64 tok = a.token + (u64)sweep + 1;
     const uint32_t* ein = (sweep & 1) ? a.e1 : a.e0;
     uint32_t* eout = (sweep & 1) ? a.e0 : a.e1;
-    const u64* fl_before = a.flags + (size_t)((sweep + 1) & 1) * ntiles;
-    u64* fl_now = a.flags + (size_t)(sweep & 1) * ntiles;
-    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    for (int ft = blockIdx.x; ft < btiles; ft += gridDim.x) {
+      // tile t of frame fr: its frame's words and flags
+      const int fr = ft / ntiles, t = ft % ntiles;
+      const u64* fl_before = a.flags + (size_t)((sweep + 1) & 1) * btiles
+                             + (size_t)fr * ntiles;
+      u64* fl_now = a.flags + (size_t)(sweep & 1) * btiles
+                    + (size_t)fr * ntiles;
+      const uint32_t* weak = a.weak + fr * fwords;
+      const uint32_t* fin = ein + fr * fwords;
+      uint32_t* fout = eout + fr * fwords;
       const int ty = t / ntx, tx = t % ntx;
       if (sweep >= 2) {                 // the same answer in every thread
         bool dirty = false;
@@ -193,8 +212,8 @@ __global__ void __launch_bounds__(THREADS, 1) dilate_kernel(Args a) {
         const int y = i / nw, k = i % nw;
         const int gr = r0 - 1 + y, g = c0 - 1 + 32 * k;
         const uint32_t keep = k == nw - 1 ? tail_mask : FULL;
-        w_s[i] = window_word(a.weak, H, wd, gr, g) & keep;
-        const uint32_t e = window_word(ein, H, wd, gr, g) & keep & w_s[i];
+        w_s[i] = window_word(weak, H, wd, gr, g) & keep;
+        const uint32_t e = window_word(fin, H, wd, gr, g) & keep & w_s[i];
         e_s[i] = e;
         o_s[i] = e;
       }
@@ -223,7 +242,7 @@ __global__ void __launch_bounds__(THREADS, 1) dilate_kernel(Args a) {
         const int hi = min(cend, 32 * gw + 32) - 32 * gw;
         const uint32_t own = (hi - lo == 32) ? FULL : (((1u << (hi - lo)) - 1u) << lo);
         diff |= ((v ^ ov) & own) != 0u;
-        uint32_t* dst = eout + (size_t)gr * wd + gw;
+        uint32_t* dst = fout + (size_t)gr * wd + gw;
         if (own == FULL)
           *dst = v;
         else
@@ -245,7 +264,8 @@ __global__ void __launch_bounds__(THREADS, 1) dilate_kernel(Args a) {
     if (sweep >= 2 && !changed) break;  // sweep 1 always runs, as on the TPU
   }
   if (gtid == 0) a.stats[0] = sweep;
-  unpack_phase((sweep & 1) ? a.e1 : a.e0, H, W, a.out, gtid, nthreads);
+  unpack_phase((sweep & 1) ? a.e1 : a.e0, a.B * H, W, a.out, gtid,
+               nthreads);
 }
 
 size_t smem_bytes(int th, int tw) {
@@ -268,27 +288,29 @@ int canny_dilate_smem_bytes(int th, int tw) {
   return b > INT_MAX ? INT_MAX : (int)b;
 }
 int canny_dilate_smem_limit() { return masks::smem_optin_limit(); }
-int canny_dilate_scratch_words(int H, int W, int th, int tw) {
-  return 2 * tiles_of(H, W, th, tw) + 4;
+int canny_dilate_scratch_words(int B, int H, int W, int th, int tw) {
+  return 2 * B * tiles_of(H, W, th, tw) + 4;
 }
 
-// The whole engine, one cooperative launch on `stream`: nm (int16 for
-// nm_bytes 2, int32 for 4; H x W) -> out (int16 {0, 255}, H x W) with weak =
-// nm >= lo, seeds = nm >= hi.  weak, e0 and e1 are (H, ceil(W/32)) uint32
-// scratch.  ctl: canny_dilate_scratch_words() 64-bit words, zeroed once by
-// the caller: 2 x tiles flags, two "a tile changed" tokens, then three ints
-// the call leaves behind: sweeps, tile floods run, block-wide flood rounds
-// summed.  token: launch sequence number << 32, never reused.  Returns
-// cudaGetLastError().
+// The whole engine for B frames (B = 1: one image), one cooperative launch
+// on `stream`: nm (int16 for nm_bytes 2, int32 for 4; B x H x W) -> out
+// (int16 {0, 255}, B x H x W) with weak = nm >= lo, seeds = nm >= hi.  weak,
+// e0 and e1 are (B, H, ceil(W/32)) uint32 scratch.  ctl:
+// canny_dilate_scratch_words() 64-bit words, zeroed once by the caller: 2 x
+// B x tiles flags, two "a tile changed" tokens, then three ints the call
+// leaves behind: sweeps (the most of any frame), tile floods run, block-wide
+// flood rounds summed.  token: launch sequence number << 32, never reused.
+// Returns cudaGetLastError().
 int canny_dilate(const void* nm, int nm_bytes, int lo, int hi, void* weak,
-                 void* e0, void* e1, void* out, int H, int W, int th, int tw,
-                 void* ctl, unsigned long long token, void* stream) {
-  if (H <= 0 || W <= 0 || th <= 0 || tw <= 0
+                 void* e0, void* e1, void* out, int B, int H, int W, int th,
+                 int tw, void* ctl, unsigned long long token, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || th <= 0 || tw <= 0
       || (nm_bytes != 2 && nm_bytes != 4))
     return (int)cudaErrorInvalidValue;
   const size_t bytes = smem_bytes(th, tw);
-  const int ntiles = tiles_of(H, W, th, tw);
-  const long long nwords = (long long)H * ((W + 31) / 32);
+  const long long ntiles = (long long)B * tiles_of(H, W, th, tw);
+  if (ntiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  const long long nwords = (long long)B * H * ((W + 31) / 32);
 
   Args a;
   a.nm = nm;
@@ -299,6 +321,7 @@ int canny_dilate(const void* nm, int nm_bytes, int lo, int hi, void* weak,
   a.e0 = (uint32_t*)e0;
   a.e1 = (uint32_t*)e1;
   a.out = (int16_t*)out;
+  a.B = B;
   a.H = H;
   a.W = W;
   a.th = th;

@@ -62,6 +62,18 @@
 // write use __ldcg (L2, not the incoherent L1).  A tile may or may not see a
 // neighbour's writes of the same step: words only gain bits, and the
 // neighbour marks the tile dirty for the next step either way.
+//
+// Batch: B frames of (H, W) are one launch, the counterpart of jax.vmap over
+// the Pallas flood (canny_edge_tpu/kernels/hysteresis_packed.py:348), which
+// gives its grid a batch axis.  The tile space is B x ntiles: tile t is tile
+// t % ntiles of frame t / ntiles, its words and flags those of its frame, so
+// a tile reads and marks tiles of its own frame only and the strict fix
+// falls at (quirk_row, quirk_word) of every frame.  Each frame converges on
+// its own: a converged frame's tiles are not dirty and cost a flag read a
+// step; the launch ends when no frame marked a tile.  The pack and unpack
+// see the batch as one (B H, W) image: frames lie back to back in the
+// (B, H, W) map and the (B, H, ceil(W/32)) masks alike, and a chunk that
+// crosses a frame's end is one that crosses a row's (the ragged path).
 
 #include <cooperative_groups.h>
 
@@ -89,8 +101,8 @@ struct Args {
   int nm_bytes, lo, hi;
   uint32_t* edges;     // packed edges: the output, or scratch before out16
   int16_t* out16;      // int16 {0, 255} output, or null
-  int H, W, quirk_row, quirk_word;
-  u64* flags;          // 2 x ntiles dirty tokens
+  int B, H, W, quirk_row, quirk_word;
+  u64* flags;          // 2 x B x ntiles dirty tokens
   u64* any;            // 2 "anything marked" tokens
   int* steps;          // the number of steps run
   u64 token;           // launch sequence number << 32
@@ -114,7 +126,8 @@ __global__ void __launch_bounds__(THREADS, 1) flood_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   const int H = a.H, W = a.W, wd = (W + 31) / 32;
   const int ntx = (wd + TILE_WORDS - 1) / TILE_WORDS, nty = (H + R - 1) / R;
-  const int ntiles = ntx * nty;
+  const int ntiles = ntx * nty, btiles = a.B * ntiles;
+  const size_t fwords = (size_t)H * wd;     // a frame's words
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = WARPS * gridDim.x;
   // the tile, row and lane of the strict fix
@@ -122,7 +135,7 @@ __global__ void __launch_bounds__(THREADS, 1) flood_kernel(Args a) {
   const int qrow = a.quirk_row % R, qlane = a.quirk_word % TILE_WORDS;
 
   if (a.nm != nullptr) {
-    pack_any(a.nm, a.nm_bytes, H, W, a.lo, a.hi, a.weak, a.strong,
+    pack_any(a.nm, a.nm_bytes, a.B * H, W, a.lo, a.hi, a.weak, a.strong,
              (size_t)blockIdx.x * THREADS + threadIdx.x,
              (size_t)gridDim.x * THREADS);
     grid.sync();
@@ -136,22 +149,27 @@ __global__ void __launch_bounds__(THREADS, 1) flood_kernel(Args a) {
   int step = 0;
   for (;;) {
     const u64 tok = a.token + (u64)step;
-    const u64* fl_cur = a.flags + (size_t)(step & 1) * ntiles;
-    u64* fl_nxt = a.flags + (size_t)((step + 1) & 1) * ntiles;
-    for (int t = gwarp; t < ntiles; t += nwarps) {
-      if (step > 0 && __ldcg(fl_cur + t) != tok) continue;   // not dirty
+    const u64* fl_cur = a.flags + (size_t)(step & 1) * btiles;
+    u64* fl_nxt = a.flags + (size_t)((step + 1) & 1) * btiles;
+    for (int ft = gwarp; ft < btiles; ft += nwarps) {
+      if (step > 0 && __ldcg(fl_cur + ft) != tok) continue;   // not dirty
+      // tile t of frame fr: its frame's words and flags
+      const int fr = ft / ntiles, t = ft % ntiles;
+      const uint32_t* weak = a.weak + fr * fwords;
+      uint32_t* edges = a.edges + fr * fwords;
+      u64* fl_frame = fl_nxt + (size_t)fr * ntiles;
       const int ty = t / ntx, tx = t % ntx;
       const int r0 = ty * R, j = tx * TILE_WORDS + lane;
       // step 0 floods from the strong mask (own words and halo): its first
       // dilation is weak & dilate8(strong); later steps read the edges
-      const uint32_t* hp = step == 0 ? a.strong : a.edges;
+      const uint32_t* hp = step == 0 ? a.strong + fr * fwords : edges;
       // every load first and none behind a branch, so that all are in
       // flight together: own words, the rows above and below, and the word
       // columns left and right of the tile (lane L holds row r0 - 1 + L)
       uint32_t w[R], e[R], o[R], hx[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        w[r] = LD(a.weak, r0 + r, j);
+        w[r] = LD(weak, r0 + r, j);
         e[r] = LD(hp, r0 + r, j);
       }
       const int j0 = tx * TILE_WORDS;
@@ -180,7 +198,7 @@ __global__ void __launch_bounds__(THREADS, 1) flood_kernel(Args a) {
         const uint32_t df = e[r] ^ o[r];
         diff |= df;
         if (j < wd && r0 + r < H && (step == 0 || df != 0u))
-          a.edges[(size_t)(r0 + r) * wd + j] = e[r];
+          edges[(size_t)(r0 + r) * wd + j] = e[r];
       }
       const uint32_t bt = __ballot_sync(FULL, e[0] != o[0]);
       const uint32_t bb = __ballot_sync(FULL, e[R - 1] != o[R - 1]);
@@ -189,7 +207,7 @@ __global__ void __launch_bounds__(THREADS, 1) flood_kernel(Args a) {
         bool marked = false;
         auto mark = [&](int y, int x) {
           if (y >= 0 && y < nty && x >= 0 && x < ntx) {
-            fl_nxt[y * ntx + x] = tok + 1;
+            fl_frame[y * ntx + x] = tok + 1;
             marked = true;
           }
         };
@@ -207,7 +225,7 @@ __global__ void __launch_bounds__(THREADS, 1) flood_kernel(Args a) {
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) *a.steps = step;
   if (a.out16 != nullptr)
-    unpack_phase(a.edges, H, W, a.out16,
+    unpack_phase(a.edges, a.B * H, W, a.out16,
                  (size_t)blockIdx.x * THREADS + threadIdx.x,
                  (size_t)gridDim.x * THREADS);
 }
@@ -242,28 +260,30 @@ int grid_cap(cudaError_t* err) {
 
 extern "C" {
 
-// u64 words of scratch a call needs: 2 x tiles flags, 2 "any" words, 1 for
-// the step count.  The caller zeroes them once and passes a token (launch
-// sequence number << 32) that it never reuses.
-int canny_hysteresis_packed_scratch_words(int H, int W) {
-  return 2 * tiles_of(H, W) + 3;
+// u64 words of scratch a call on B frames needs: 2 x B x tiles flags, 2
+// "any" words, 1 for the step count.  The caller zeroes them once and passes
+// a token (launch sequence number << 32) that it never reuses.
+int canny_hysteresis_packed_scratch_words(int B, int H, int W) {
+  return 2 * B * tiles_of(H, W) + 3;
 }
 
-// The flood.  Input: nm != null -> an int16 (nm_bytes 2) or int32 (4) NMS map
-// (H, W) with thresholds lo / hi, and weak / strong are (H, ceil(W/32))
-// uint32 scratch the pack fills; nm == null -> weak / strong are the packed
-// inputs.  Output: out16 != null -> int16 {0, 255} (H, W), and edges is
-// (H, ceil(W/32)) uint32 scratch; out16 == null -> edges is the packed
-// output.  strict != 0: the strict-reference fix of the image's pixel (0, 1),
-// with its pixel (0, 0) at row quirk_row, word quirk_word of the masks.  The
-// step count lands in the last scratch word (as an int).  Launches on
-// `stream` and returns cudaGetLastError().
+// The flood of B frames (B = 1: one image).  Input: nm != null -> an int16
+// (nm_bytes 2) or int32 (4) NMS map (B, H, W) with thresholds lo / hi, and
+// weak / strong are (B, H, ceil(W/32)) uint32 scratch the pack fills; nm ==
+// null -> weak / strong are the packed inputs.  Output: out16 != null ->
+// int16 {0, 255} (B, H, W), and edges is (B, H, ceil(W/32)) uint32 scratch;
+// out16 == null -> edges is the packed output.  strict != 0: the
+// strict-reference fix of each frame's pixel (0, 1), with its pixel (0, 0)
+// at row quirk_row, word quirk_word of the frame's masks.  The step count
+// (the most any frame needed) lands in the last scratch word (as an int).
+// One launch on `stream`; returns cudaGetLastError().
 int canny_hysteresis_packed(void* weak, void* strong, const void* nm,
                             int nm_bytes, int lo, int hi, void* edges,
-                            void* out16, int H, int W, int strict,
+                            void* out16, int B, int H, int W, int strict,
                             int quirk_row, int quirk_word, void* scratch,
                             unsigned long long token, void* stream) {
-  if (H <= 0 || W <= 0 || (nm != nullptr && nm_bytes != 2 && nm_bytes != 4)
+  if (B <= 0 || H <= 0 || W <= 0
+      || (nm != nullptr && nm_bytes != 2 && nm_bytes != 4)
       || (strict && (quirk_row < 0 || quirk_row >= H || quirk_word < 0
                      || quirk_word >= (W + 31) / 32)))
     return (int)cudaErrorInvalidValue;
@@ -272,8 +292,9 @@ int canny_hysteresis_packed(void* weak, void* strong, const void* nm,
   const int cap = strict ? grid_cap<true>(&e) : grid_cap<false>(&e);
   if (e != cudaSuccess) return (int)e;
   const int wd = (W + 31) / 32;
-  const long long nwords = (long long)H * wd;
-  const int ntiles = tiles_of(H, W);
+  const long long nwords = (long long)B * H * wd;
+  const long long ntiles = (long long)B * tiles_of(H, W);
+  if (ntiles > INT_MAX) return (int)cudaErrorInvalidValue;
   const bool ends = nm != nullptr || out16 != nullptr;
 
   Args a;
@@ -285,6 +306,7 @@ int canny_hysteresis_packed(void* weak, void* strong, const void* nm,
   a.hi = hi;
   a.edges = (uint32_t*)edges;
   a.out16 = (int16_t*)out16;
+  a.B = B;
   a.H = H;
   a.W = W;
   a.quirk_row = quirk_row;

@@ -2,10 +2,11 @@
 
 uint8 ``(H, W)`` -> int16 NMS magnitude ``(H, W)``, or, with thresholds,
 the packed uint32 ``(weak, strong)`` masks ``(H, ceil(W/32))``
-(:func:`frontend`); the same for one block of a larger image, given its
-window with the halo (:func:`frontend_block`, K1's block mode).  A CPU
-tensor goes to the plain version (:mod:`..ops.window`); a CUDA tensor goes
-to the kernel or raises.
+(:func:`frontend`), and the same for a ``(B, H, W)`` batch in one launch
+(JAX's ``vmap`` over its kernel); the same for one block of a larger image,
+given its window with the halo (:func:`frontend_block`, K1's block mode).
+A CPU tensor goes to the plain version (:mod:`..ops.window`, a frame at a
+time); a CUDA tensor goes to the kernel or raises.
 """
 
 from __future__ import annotations
@@ -18,9 +19,12 @@ from ..ops.window import frontend_nm as frontend_plain
 from . import _build
 
 # kernel launches made by this wrapper (the main path's proof of use): all,
-# and those in block mode
+# those in block mode, and those on a batch of two frames or more
 launches = 0
 block_launches = 0
+batch_launches = 0
+
+MAX_BATCH = 65535    # frames a launch: the grid's z limit
 
 _max_window: dict[int, int] = {}
 
@@ -45,7 +49,7 @@ def _check_taps(taps: torch.Tensor) -> int:
 
 
 def _launch(entry: str, args, src: torch.Tensor, taps: torch.Tensor,
-            oh: int, ow: int, thresholds):
+            oh: int, ow: int, thresholds, lead=()):
     """Check the device and the window, allocate the outputs, launch."""
     dev = src.device
     if dev.type != "cuda" or taps.device != dev:
@@ -57,10 +61,11 @@ def _launch(entry: str, args, src: torch.Tensor, taps: torch.Tensor,
                          f"memory on {dev}: the largest is {max_window(dev)}")
     taps = taps.contiguous()
     if thresholds is None:
-        nm = torch.empty((oh, ow), dtype=torch.int16, device=dev)
+        nm = torch.empty((*lead, oh, ow), dtype=torch.int16, device=dev)
         out = (0, 0, 0, nm.data_ptr(), None, None)
     else:
-        weak = torch.empty((oh, cdiv(ow, 32)), dtype=torch.uint32, device=dev)
+        weak = torch.empty((*lead, oh, cdiv(ow, 32)), dtype=torch.uint32,
+                           device=dev)
         strong = torch.empty_like(weak)
         # the kernel compares 4 * magnitude with 4 * threshold in an int;
         # magnitudes lie in [0, 2**13), so a clamped threshold decides alike
@@ -77,20 +82,33 @@ def _launch(entry: str, args, src: torch.Tensor, taps: torch.Tensor,
 def frontend(img: torch.Tensor, taps: torch.Tensor, thresholds=None):
     """Front end on ``img``'s device; ``taps``: float32 Gaussian weights.
 
+    ``img``: uint8 ``(H, W)`` or a batch ``(B, H, W)``, 1 <= B <= 65535,
+    whose results stack the frames' (one launch on the card).
     ``thresholds``: optional ``(min_val, max_val)`` integers.
     """
-    global launches
-    if img.dtype != torch.uint8 or img.dim() != 2 or img.numel() == 0:
-        raise ValueError(f"expected a non-empty uint8 (H, W) image, got "
-                         f"{img.dtype} {tuple(img.shape)}")
+    global launches, batch_launches
+    if img.dtype != torch.uint8 or img.dim() not in (2, 3) \
+            or img.numel() == 0:
+        raise ValueError(f"expected a non-empty uint8 (H, W) image or "
+                         f"(B, H, W) batch, got {img.dtype} "
+                         f"{tuple(img.shape)}")
+    if img.dim() == 3 and img.shape[0] > MAX_BATCH:
+        raise ValueError(f"a batch of {img.shape[0]} frames: one launch "
+                         f"takes at most {MAX_BATCH}")
     _check_taps(taps)
     if img.device.type == "cpu":
+        if img.dim() == 3:
+            res = [frontend(f, taps, thresholds) for f in img]
+            return (torch.stack(res) if thresholds is None else
+                    tuple(torch.stack(m) for m in zip(*res)))
         res = frontend_plain(img, taps.cpu().numpy(), thresholds)
         return res.to(torch.int16) if thresholds is None else res
     img = img.contiguous()
-    h, w = img.shape
-    res = _launch("canny_frontend", (h, w), img, taps, h, w, thresholds)
+    b, (h, w) = (img.shape[0] if img.dim() == 3 else 1), img.shape[-2:]
+    res = _launch("canny_frontend", (b, h, w), img, taps, h, w, thresholds,
+                  img.shape[:-2])
     launches += 1
+    batch_launches += b > 1
     return res
 
 

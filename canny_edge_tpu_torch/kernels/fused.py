@@ -3,9 +3,10 @@ hysteresis engines (``canny_edge_tpu/kernels/fused.py:canny_fused``).
 
 On a CUDA tensor every stage is a hand-written kernel except the
 ``"packed-xla"`` flood, which is plain PyTorch as it was XLA on the TPU: a
-frame is two launches, K1 and the engine (K2, K3 or K4, each with its
-thresholds, packing, sweeps and unpacking in one cooperative kernel), and
-nothing comes back to the host inside the call.  On a CPU tensor every
+frame, or a ``(B, H, W)`` batch (JAX's ``vmap``), is two launches, K1 and
+the engine (K2, K3 or K4, each with its thresholds, packing, sweeps and
+unpacking in one cooperative kernel), and nothing comes back to the host
+inside the call.  On a CPU tensor every
 wrapper runs its plain version.  JAX's ``interpret=``
 has no counterpart: the tensor's device takes its role.  A tensor stays
 where it lies; a NumPy frame goes to ``device``, the card by default.
@@ -65,7 +66,8 @@ def canny_fused(img, min_val, max_val, *, kernel_vals, hysteresis_steps=4,
     counterpart in K1 and changes no result).  ``hysteresis_impl``:
     "packed" (K2, the default), "packed-xla" (the plain packed flood),
     "banded" (K4) or "dilate" (K3).  ``strict``: strict-reference
-    hysteresis, packed engines only.  A batch runs frame by frame.
+    hysteresis, packed engines only.  A batch is one launch of each stage,
+    every frame converging on its own.
     """
     del hysteresis_steps
     if hysteresis_impl not in IMPLS:
@@ -74,13 +76,7 @@ def canny_fused(img, min_val, max_val, *, kernel_vals, hysteresis_steps=4,
     if strict and hysteresis_impl not in ("packed", "packed-xla"):
         raise ValueError("strict mode: use hysteresis_impl packed/packed-xla")
     img = to_device(img, device)
-    taps = taps_tensor(kernel_vals, img.device)
-    if img.dim() == 3:
-        return torch.stack([
-            canny_fused(f, min_val, max_val, kernel_vals=taps, tile=tile,
-                        hysteresis_impl=hysteresis_impl, strict=strict)
-            for f in img])
-    nm = frontend(img, taps)
+    nm = frontend(img, taps_tensor(kernel_vals, img.device))
     if hysteresis_impl == "packed":
         return hysteresis_packed_nm(nm, min_val, max_val, strict=strict)
     if hysteresis_impl == "packed-xla":

@@ -1,12 +1,13 @@
 """Wrapper of K4, the banded raster-scan hysteresis engine
 (``csrc/hysteresis_banded.cu``; ``hysteresis_impl="banded"``).
 
-int16/int32 NMS magnitude ``(H, W)`` -> int16 {0, 255}.  A CPU tensor goes
-to the plain version (:func:`..ops.banded.hysteresis_banded`); a CUDA
-tensor goes to the kernel or raises.  On the card a call is one cooperative
-launch (thresholds, packing, sweeps with their ``needs_more`` test,
-unpacking), and nothing is read back unless the caller asks for the sweep
-count.
+int16/int32 NMS magnitude ``(H, W)``, or a ``(B, H, W)`` batch, -> int16
+{0, 255}.  A CPU tensor goes to the plain version
+(:func:`..ops.banded.hysteresis_banded`, a frame at a time); a CUDA tensor
+goes to the kernel or raises.  On the card a call is one cooperative
+launch, for a batch too (JAX's ``vmap`` over its sweeps): thresholds,
+packing, sweeps with their ``needs_more`` test, unpacking; nothing is read
+back unless the caller asks for the sweep count.
 """
 
 from __future__ import annotations
@@ -17,10 +18,12 @@ from ..ops.banded import band_params
 from ..ops.banded import hysteresis_banded as banded_plain
 from ..ops.packed import cdiv
 from ._scratch import Scratch
-from .hysteresis import check_nm, launch_engine
+from .hysteresis import check_nm, launch_engine, plain_frames
 
-# kernel launches made by this wrapper (the main path's proof of use)
+# kernel launches made by this wrapper (the main path's proof of use): all,
+# and those on a batch of two frames or more
 launches = 0
+batch_launches = 0
 
 _scratch = Scratch()
 
@@ -30,13 +33,13 @@ def _run(nm, min_val, max_val, band_h, group):
     and, on the card, also the most rounds of a band in a sweep, the rounds
     summed and the bands run, as an int32 device view that nothing has read
     yet; ``band_h`` is the band that ran."""
-    global launches
-    h, w = check_nm(nm)
+    global launches, batch_launches
+    b, h, w = check_nm(nm)
     asked = band_h is not None
     band_h, _ = band_params(h, w, band_h, group)
     if nm.device.type == "cpu":
-        out, sweeps = banded_plain(nm, min_val, max_val, band_h=band_h,
-                                   return_sweeps=True)
+        out, sweeps = plain_frames(banded_plain, nm, min_val, max_val,
+                                   band_h=band_h)
         return out, [sweeps], band_h
 
     def prepare(lib):
@@ -57,6 +60,7 @@ def _run(nm, min_val, max_val, band_h, group):
     out, entry = launch_engine("banded", _scratch, nm, min_val, max_val,
                                (band_h, asked), prepare)
     launches += 1
+    batch_launches += b > 1
     return out, entry["ints"], entry["config"][0]
 
 
@@ -64,14 +68,17 @@ def hysteresis_banded(nm: torch.Tensor, min_val: int, max_val: int, *,
                       band_h=None, group=None, return_sweeps: bool = False):
     """Hysteresis by banded row recurrences on ``nm``'s device.
 
+    ``nm``: ``(H, W)`` or a batch ``(B, H, W)``, one launch on the card,
+    every frame cut into the same bands.
     ``band_h``/``group`` default and clamp as in the JAX engine
     (:func:`..ops.banded.band_params`); ``band_h`` changes the sweep count,
     never the result, and ``group`` (a TPU VMEM grouping) is only
     validated.  On the card a default band that does not fit a block's
     shared memory (below 512 rows JAX takes the whole image) is halved
     until it does; a ``band_h`` that was asked for and does not fit raises.
-    ``return_sweeps``: also return the number of sweeps (on the card that
-    reads one word back, the call's only host sync).
+    ``return_sweeps``: also return the number of sweeps, of a batch the most
+    of any frame (on the card that reads one word back, the call's only
+    host sync).
     """
     out, counts, _ = _run(nm, min_val, max_val, band_h, group)
     return (out, int(counts[0])) if return_sweeps else out
@@ -79,10 +86,13 @@ def hysteresis_banded(nm: torch.Tensor, min_val: int, max_val: int, *,
 
 def banded_stats(nm: torch.Tensor, min_val: int, max_val: int, *,
                  band_h=None, group=None):
-    """:func:`hysteresis_banded` with the call's counts: ``(out, {"sweeps",
-    "rounds_max", "rounds_sum", "bands_run", "band_h"})``, the rounds being
-    those of a band in a sweep and ``band_h`` the band that ran; on the CPU
-    only ``sweeps`` and ``band_h``."""
+    """:func:`hysteresis_banded` on one ``(H, W)`` map with the call's
+    counts: ``(out, {"sweeps", "rounds_max", "rounds_sum", "bands_run",
+    "band_h"})``, the rounds being those of a band in a sweep and ``band_h``
+    the band that ran; on the CPU only ``sweeps`` and ``band_h``."""
+    if nm.dim() != 2:
+        raise ValueError(f"banded_stats takes one (H, W) map, got "
+                         f"{tuple(nm.shape)}")
     out, counts, ran = _run(nm, min_val, max_val, band_h, group)
     names = ("sweeps", "rounds_max", "rounds_sum", "bands_run")
     stats = dict(zip(names, list(counts) if isinstance(counts, list)

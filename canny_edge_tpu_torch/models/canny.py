@@ -12,7 +12,9 @@ the fused engines whatever the backend, as in JAX.  Every function runs
 where its input tensor lies: on a CUDA tensor the stages are the
 hand-written kernels, on a CPU tensor the same wrappers run their plain
 PyTorch versions; a NumPy input goes to ``device``, the card unless
-``device="cpu"``.  ``with_intermediates`` runs the unpacked stage path of
+``device="cpu"``.  A ``(B, H, W)`` batch on ``fused`` or ``pallas`` is one
+launch of each stage, every frame converging on its own (JAX's ``vmap`` and
+``lax.map``); ``xla`` runs it a frame at a time.  ``with_intermediates`` runs the unpacked stage path of
 :mod:`..ops.stages` in plain PyTorch wherever the input lies.
 """
 
@@ -55,6 +57,12 @@ def _strict(hysteresis_mode: str) -> bool:
     return hysteresis_mode == "strict-reference"
 
 
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{BACKENDS}")
+
+
 def _host_taps(kernel_vals) -> np.ndarray:
     """The taps as float32 host values (the plain front end's argument)."""
     if isinstance(kernel_vals, torch.Tensor):
@@ -76,29 +84,34 @@ def canny_fn(img, min_val, max_val, *, kernel_vals, hysteresis_steps=4,
     end and the plain packed flood), "fused" (K1 with the thresholds, then K2
     to int16) or "pallas" (:func:`..kernels.fused.canny_fused`: K1 to the NMS
     map, then K2).  ``hysteresis_mode``: "component" or "strict-reference".
-    A batch runs frame by frame (:func:`canny_fn_batched`).
+    A batch goes to :func:`canny_fn_batched`.
     """
     del hysteresis_steps
     strict = _strict(hysteresis_mode)
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; expected one of "
-                         f"{BACKENDS}")
+    _check_backend(backend)
     img = to_device(img, device)
     if img.dim() == 3:
         return canny_fn_batched(img, min_val, max_val,
                                 kernel_vals=kernel_vals, backend=backend,
                                 hysteresis_mode=hysteresis_mode)
-    if backend == "fused":
-        h, w = img.shape
-        weak, strong = frontend(img, taps_tensor(kernel_vals, img.device),
-                                (min_val, max_val))
-        return hysteresis_packed(weak, strong, h, w, strict=strict,
-                                 edges_int16=True)
+    if backend == "xla":
+        return hysteresis_packed_plain(
+            frontend_nm(img, _host_taps(kernel_vals)), min_val, max_val,
+            strict=strict)
+    return _canny_frames(img, min_val, max_val, kernel_vals, backend, strict)
+
+
+def _canny_frames(img, min_val, max_val, kernel_vals, backend, strict):
+    """The ``fused`` or ``pallas`` backend on a frame or a batch: one launch
+    of each stage."""
     if backend == "pallas":
         return canny_fused(img, min_val, max_val, kernel_vals=kernel_vals,
                            strict=strict)
-    return hysteresis_packed_plain(frontend_nm(img, _host_taps(kernel_vals)),
-                                   min_val, max_val, strict=strict)
+    h, w = img.shape[-2:]
+    weak, strong = frontend(img, taps_tensor(kernel_vals, img.device),
+                            (min_val, max_val))
+    return hysteresis_packed(weak, strong, h, w, strict=strict,
+                             edges_int16=True)
 
 
 def canny_fn_packed(img, min_val, max_val, *, kernel_vals,
@@ -106,16 +119,13 @@ def canny_fn_packed(img, min_val, max_val, *, kernel_vals,
                     device="cuda") -> torch.Tensor:
     """uint8 (H, W) or (B, H, W) -> uint32 (..., H, ceil(W/32)) edge
     bitmask (bit b of word j = column 32j + b), where ``img`` lies: K1 with
-    the thresholds, then K2, whose packed state is the output (no unpack).
-    ``img``, ``kernel_vals``, ``device``: as in :func:`canny_fn`.
+    the thresholds, then K2, whose packed state is the output (no unpack);
+    a batch is one launch of each.  ``img``, ``kernel_vals``, ``device``: as
+    in :func:`canny_fn`.
     """
     strict = _strict(hysteresis_mode)
     img = to_device(img, device)
-    if img.dim() == 3:
-        return torch.stack([
-            canny_fn_packed(f, min_val, max_val, kernel_vals=kernel_vals,
-                            hysteresis_mode=hysteresis_mode) for f in img])
-    h, w = img.shape
+    h, w = img.shape[-2:]
     weak, strong = frontend(img, taps_tensor(kernel_vals, img.device),
                             (min_val, max_val))
     return hysteresis_packed(weak, strong, h, w, strict=strict)
@@ -124,13 +134,22 @@ def canny_fn_packed(img, min_val, max_val, *, kernel_vals,
 def canny_fn_batched(imgs, min_val, max_val, *, kernel_vals,
                      hysteresis_steps=8, hysteresis_mode="component",
                      backend="xla", device="cuda") -> torch.Tensor:
-    """(B, H, W) uint8 -> (B, H, W) int16 {0, 255}: :func:`canny_fn` a
-    frame at a time, each with its own convergence (JAX's ``lax.map``)."""
+    """(B, H, W) uint8 -> (B, H, W) int16 {0, 255}, each frame with its own
+    convergence (JAX's ``lax.map``): on ``fused`` and ``pallas`` one launch
+    of each stage for the batch, on ``xla`` :func:`canny_fn` a frame at a
+    time."""
+    strict = _strict(hysteresis_mode)
+    _check_backend(backend)
     imgs = to_device(imgs, device)
-    return torch.stack([
-        canny_fn(f, min_val, max_val, kernel_vals=kernel_vals,
-                 hysteresis_steps=hysteresis_steps, backend=backend,
-                 hysteresis_mode=hysteresis_mode) for f in imgs])
+    if imgs.dim() != 3:
+        raise ValueError(f"expected a (B, H, W) batch, got "
+                         f"{tuple(imgs.shape)}")
+    if backend == "xla":
+        return torch.stack([
+            canny_fn(f, min_val, max_val, kernel_vals=kernel_vals,
+                     hysteresis_steps=hysteresis_steps, backend=backend,
+                     hysteresis_mode=hysteresis_mode) for f in imgs])
+    return _canny_frames(imgs, min_val, max_val, kernel_vals, backend, strict)
 
 
 def canny_with_intermediates(img, min_val, max_val, *, kernel_vals,
@@ -198,9 +217,7 @@ class CannyTorch:
                hysteresis_steps):
         if hysteresis_mode not in MODES:
             raise ValueError(f"unknown hysteresis mode: {hysteresis_mode!r}")
-        if backend not in BACKENDS:
-            raise ValueError(f"unknown backend {backend!r}; expected one of "
-                             f"{BACKENDS}")
+        _check_backend(backend)
         kernel = np.asarray(kernel, np.float32)
         if kernel.ndim != 1 or kernel.shape[0] % 2 != 1:
             raise ValueError("kernel must be 1-D with an odd number of taps")

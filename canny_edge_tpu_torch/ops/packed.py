@@ -233,17 +233,31 @@ def hysteresis_packed_masks(weak_p, strong_p, height: int, width: int,
         e = new
 
 
-def hysteresis_packed(nm: torch.Tensor, min_val: int, max_val: int, *,
+def hysteresis_packed(nm: torch.Tensor, min_val: int, max_val: int,
+                      inner_dilate: int = INNER_DILATE_XLA,
                       strict: bool = False) -> torch.Tensor:
     """int NMS magnitude (..., H, W) -> int16 {0, 255}, on ``nm``'s device.
 
     The ``"packed-xla"`` engine and the ``xla`` backend's flood
     (``canny_edge_tpu/ops/packed.py:hysteresis_packed``): threshold, pack,
     the plain packed flood, unpack.  ``nm`` is compared signed (NOEDGE is 0,
-    so ``min_val=0`` makes every pixel weak).
+    so ``min_val=0`` makes every pixel weak).  ``inner_dilate`` changes the
+    number of rounds, never the result.
     """
+    out, _ = hysteresis_packed_with_stats(nm, min_val, max_val, inner_dilate,
+                                          strict=strict)
+    return out
+
+
+def hysteresis_packed_with_stats(nm: torch.Tensor, min_val: int,
+                                 max_val: int,
+                                 inner_dilate: int = INNER_DILATE_XLA,
+                                 strict: bool = False):
+    """:func:`hysteresis_packed` with the flood's rounds: ``(int16 {0, 255}
+    edges, rounds)`` (``canny_edge_tpu/ops/packed.py:
+    hysteresis_packed_with_stats``)."""
     h, w = nm.shape[-2], nm.shape[-1]
-    edges, _ = hysteresis_packed_masks(pack_mask(nm >= min_val),
-                                       pack_mask(nm >= max_val), h, w,
-                                       strict=strict)
-    return unpack_edges(edges, w)
+    edges, rounds = hysteresis_packed_masks(pack_mask(nm >= min_val),
+                                            pack_mask(nm >= max_val), h, w,
+                                            inner_dilate, strict=strict)
+    return unpack_edges(edges, w), rounds

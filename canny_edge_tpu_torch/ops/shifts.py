@@ -1,8 +1,8 @@
 """Static shifts of a tensor's last two axes: the counterpart of
 ``canny_edge_tpu/ops/shifts.py``.  A stencil is a sum or an OR of shifted
-copies: zero-filled (``shift_cols`` / ``shift_rows``) or edge-replicated
-(``clamp_shift_cols`` / ``clamp_shift_rows``, the reference's Sobel
-clamp)."""
+copies: zero-filled (``shift_cols`` / ``shift_rows``, both at once
+``shift2d``) or edge-replicated (``clamp_shift_cols`` / ``clamp_shift_rows``,
+the reference's Sobel clamp)."""
 
 from __future__ import annotations
 
@@ -32,6 +32,11 @@ def shift_rows(x: torch.Tensor, off: int, fill=0) -> torch.Tensor:
     if off > 0:
         return F.pad(x[..., off:, :], (0, 0, 0, off), value=fill)
     return F.pad(x[..., :h + off, :], (0, 0, -off, 0), value=fill)
+
+
+def shift2d(x: torch.Tensor, dr: int, dc: int, fill=0) -> torch.Tensor:
+    """y[..., i, j] = x[..., i + dr, j + dc] where valid, ``fill`` elsewhere."""
+    return shift_rows(shift_cols(x, dc, fill), dr, fill)
 
 
 def clamp_shift_cols(x: torch.Tensor, off: int) -> torch.Tensor:

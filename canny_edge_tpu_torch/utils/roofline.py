@@ -193,10 +193,12 @@ def _bound(nbytes: int, ops: int) -> dict:
 
 
 def kernel_bounds(hw=(1080, 1920), window: int = 11, block=(1080, 960),
-                  extended=(1082, 1024)) -> dict[str, dict]:
+                  extended=(1082, 1024), batch=None) -> dict[str, dict]:
     """``{kernel: {"bound_ms", "bound_by"}}``: each kernel's least time on
     the H100 SXM at the shapes ``chip_smoke.py`` runs it, from the hand
     model (each input byte read once, each output byte written once).
+    ``batch``: the bounds of one launch on ``batch`` frames of each shape,
+    ``batch`` times the frame's bytes and operations.
 
     ``hw``: the frame of K1 (with the thresholds), K2 (masks in, packed
     out), K2 from an NMS map to int16 (``hysteresis_packed_nm_int16``), K3
@@ -208,21 +210,21 @@ def kernel_bounds(hw=(1080, 1920), window: int = 11, block=(1080, 960),
     h, w = hw
     wd = -(-w // 32)
     k2_ops = K2_OPS_PER_WORD * h * wd
-    engine = _bound(4 * h * w, NM_INT16_OPS_PER_PX * h * w + k2_ops)
+    engine = (4 * h * w, NM_INT16_OPS_PER_PX * h * w + k2_ops)
     hl, wl = block
     r = window // 2 + 2
     eh, ewd = extended[0], extended[1] // 32
-    return {
-        "frontend": _bound(h * w + 2 * h * wd * 4,
-                           h * w * k1_ops_per_px(window)),
-        "hysteresis_packed": _bound(3 * h * wd * 4, k2_ops),
-        "hysteresis_packed_nm_int16": _bound(
-            4 * h * w, k2_ops + NM_INT16_OPS_PER_PX * h * w),
-        "hysteresis_dilate": dict(engine),
-        "hysteresis_banded": dict(engine),
-        "frontend_block": _bound(
+    n = 1 if batch is None else batch
+    return {k: _bound(n * b, n * o) for k, (b, o) in {
+        "frontend": (h * w + 2 * h * wd * 4, h * w * k1_ops_per_px(window)),
+        "hysteresis_packed": (3 * h * wd * 4, k2_ops),
+        "hysteresis_packed_nm_int16": (4 * h * w,
+                                       k2_ops + NM_INT16_OPS_PER_PX * h * w),
+        "hysteresis_dilate": engine,
+        "hysteresis_banded": engine,
+        "frontend_block": (
             (hl + 2 * r) * (wl + 2 * r) + 2 * hl * (wl // 32) * 4,
             hl * wl * k1_ops_per_px(window)),
-        "hysteresis_packed_quirk": _bound(3 * eh * ewd * 4,
-                                          K2_OPS_PER_WORD * eh * ewd),
-    }
+        "hysteresis_packed_quirk": (3 * eh * ewd * 4,
+                                    K2_OPS_PER_WORD * eh * ewd),
+    }.items()}

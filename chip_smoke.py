@@ -27,9 +27,10 @@ Phases (any failure exits non-zero and prints no result):
      its tile schedule (at most the mirror's);
   5. the full ``CannyTorch`` path at 1080p and 4K (sigma 1.4, 30/90):
      ``__call__``, ``packed`` and ``batch_packed`` (B=4) in both modes, with
-     every launch count set to 0 just before and read just after and no
-     plain pack or unpack called, then held against the plain pipeline on
-     the card; plus the card against the CPU on a small frame;
+     every launch count set to 0 just before and read just after (exactly
+     one launch of K1 and of K2 a call, the batch included) and no plain
+     pack or unpack called, then held against the plain pipeline on the
+     card; plus the card against the CPU on a small frame;
   6. times with CUDA events (median over many launches) of the kernels in
      each mode, their plain versions and the whole frame;
   7. K3 and K4 against their plain versions, bit-equal with equal sweep
@@ -57,7 +58,7 @@ Phases (any failure exits non-zero and prints no result):
      stop halfway, a 4K stream, a ``raw8`` file and a PGM directory through
      the native feeder (and the PGM directory without it), and one ``python
      -m canny_edge_tpu_torch.cli``: every PNG, read back with the port's
-     reader, equals ``CannyTorch``'s edges and each kernel ran once a frame;
+     reader, equals ``CannyTorch``'s edges and each kernel ran once a batch;
      ``with_intermediates`` on the card at 1080p (``nonmax`` equal to K1's NMS
      map, edges to the fused frame, every intermediate and the dilation
      count to the CPU's), ``-s``'s three step images, ``SobelTorch`` card
@@ -86,7 +87,19 @@ Phases (any failure exits non-zero and prints no result):
      (``utils/opcount.py``, ``utils/roofline.py``), checked for a plausible
      share and a front-end audit of 50 to 400 operations a pixel; every
      bound of the ``kernels`` line held equal to
-     ``utils.roofline.kernel_bounds``; printed on a ``bench:`` line.
+     ``utils.roofline.kernel_bounds``; printed on a ``bench:`` line;
+ 13. the batch path (JAX's ``vmap`` over its kernels): K1 in both modes,
+     K2 in its four modes (component and strict), K3 and K4 on ``(B, H,
+     W)`` batches, one launch each, held bit-equal to B single-frame
+     launches and to the plain versions frame by frame, K3's and K4's sweeps
+     equal to the most of a frame: 8 1080p and 2 4K frames, a mixed batch
+     (an empty map, the serpentine, a random map) and batches of 3 at
+     257x333, 1x1000, 40x1 and 64x33 (unaligned frame starts); the main
+     path's launch counts from 0 (exactly one launch of each stage a batch
+     for ``fused`` ``batch`` / ``batch_packed``, ``pallas`` and
+     ``canny_fused`` with each engine); a batch's wall, host enqueue and
+     device time beside its frames one by one, printed on a ``batch:``
+     line; the batch rows' bounds held equal to ``kernel_bounds(batch=B)``.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Every measured number also goes to
 standard error as one ``report:`` JSON line and to
@@ -271,7 +284,7 @@ def command_line_phase(dev, time_ms, hw=SIZES["1080p"], hw4k=SIZES["4k"]):
                             ("pallas", ["--backend", "pallas"])):
             stats, counts = counted(stream + ["--out-dir", d(name), *extra])
             check(stats["frames"] == 16 and counts == {
-                "frontend": 16, "hysteresis_packed": 16},
+                "frontend": 4, "hysteresis_packed": 4},
                 f"{name} stream: {stats['frames']} frames, launches {counts}")
             check_pngs(d(name), refs, f"{name} stream")
             runs[name] = {"stats": stats, "launches": counts}
@@ -281,8 +294,8 @@ def command_line_phase(dev, time_ms, hw=SIZES["1080p"], hw4k=SIZES["4k"]):
         stats, counts = counted(stream + ["--resume", "--out-dir",
                                           d("resume")])
         check(first["frames"] == 8 and stats["skipped_batches"] == 2
-              and stats["frames"] == 8 and counts["frontend"] == 8
-              and counts["hysteresis_packed"] == 8,
+              and stats["frames"] == 8 and counts["frontend"] == 2
+              and counts["hysteresis_packed"] == 2,
               f"resume: {first} then {stats}, launches {counts}")
         check_pngs(d("resume"), refs, "resumed stream")
         runs["resume"] = {"stats": stats, "launches": counts}
@@ -291,7 +304,7 @@ def command_line_phase(dev, time_ms, hw=SIZES["1080p"], hw4k=SIZES["4k"]):
         frames4k = [imageio.synthetic_image(*hw4k, seed=i) for i in range(4)]
         stats, counts = counted([f"synthetic:{hw4k[0]}x{hw4k[1]}x4", *args, "--batch",
                                  "2", "--json", "--out-dir", d("4k")])
-        check(counts == {"frontend": 4, "hysteresis_packed": 4},
+        check(counts == {"frontend": 2, "hysteresis_packed": 2},
               f"4K stream launches {counts}")
         check_pngs(d("4k"), refs_of(frames4k), "4K stream")
         runs["4k"] = {"stats": stats, "launches": counts}
@@ -301,7 +314,7 @@ def command_line_phase(dev, time_ms, hw=SIZES["1080p"], hw4k=SIZES["4k"]):
         stats, counts = counted([f"raw8:{d('frames.raw')}:{hd}x8", *args,
                                  "--batch", "4", "--native-feeder", "--json",
                                  "--out-dir", d("raw8")])
-        check(counts["frontend"] == 8 and stats["feeder"]["produced"] == 8
+        check(counts["frontend"] == 2 and stats["feeder"]["produced"] == 8
               and stats["feeder"]["read_errors"] == 0,
               f"raw8: {stats}, launches {counts}")
         check_pngs(d("raw8"), refs[:8], "raw8 stream")
@@ -314,7 +327,7 @@ def command_line_phase(dev, time_ms, hw=SIZES["1080p"], hw4k=SIZES["4k"]):
                             ("pgm_python", [])):
             stats, counts = counted([d("pgm"), *args, "--batch", "2",
                                      "--json", "--out-dir", d(name), *extra])
-            check(counts["frontend"] == 4 and ("feeder" in stats) == bool(
+            check(counts["frontend"] == 2 and ("feeder" in stats) == bool(
                 extra), f"{name}: {stats}, launches {counts}")
             check_pngs(d(name), refs[:4], name)
             runs[name] = {"stats": stats, "launches": counts}
@@ -410,7 +423,7 @@ def command_line_phase(dev, time_ms, hw=SIZES["1080p"], hw4k=SIZES["4k"]):
         kfe.launches = khp.launches = 0
         with trace(d("trace")):
             traced = run_cli(ready + ["--out-dir", d("ready_traced")])
-        check(kfe.launches == 64 and khp.launches == 64,
+        check(kfe.launches == 8 and khp.launches == 8,
               f"traced ready stream: launches {kfe.launches}, "
               f"{khp.launches}")
         check_pngs(d("ready_traced"), refs[:8] * 8, "traced ready stream")
@@ -782,6 +795,348 @@ def multi_device_phase(dev, time_ms, device_ms, hw=SIZES["1080p"],
     return rep
 
 
+def batch_phase(dev, time_ms, host_ms, device_ms, hw=SIZES["1080p"],
+                hw4k=SIZES["4k"], batch=8, batch4k=2,
+                ragged=((257, 333), (1, 1000), (40, 1), (64, 33))):
+    """Phase 13: the batch path.  K1 (both modes), K2 (four modes,
+    component and strict), K3 and K4 on ``(B, H, W)`` batches, each one
+    launch, held bit-equal to B single-frame launches and to the plain
+    versions frame by frame, with K3's and K4's sweeps equal to the most of
+    a frame; ``batch`` frames at ``hw``, ``batch4k`` at ``hw4k``, a mixed
+    batch (an empty map, the serpentine, a random map) and batches of 3 at
+    each ``ragged`` shape (unaligned frame starts).  Then the main path's
+    launch counts (exactly one launch of each stage a batch) and the times
+    of a batch against its frames one by one.  Returns ``(report, kernel
+    entries of the kernels line)``."""
+    import torch
+
+    from canny_edge_tpu_torch import CannyTorch
+    from canny_edge_tpu_torch.kernels import frontend as kfe
+    from canny_edge_tpu_torch.kernels import hysteresis as k3
+    from canny_edge_tpu_torch.kernels import hysteresis_packed as khp
+    from canny_edge_tpu_torch.kernels import hysteresis_v2 as k4
+    from canny_edge_tpu_torch.kernels.fused import IMPLS, canny_fused
+    from canny_edge_tpu_torch.ops import banded as Bd
+    from canny_edge_tpu_torch.ops import dilate as Dl
+    from canny_edge_tpu_torch.ops import packed as P
+    from canny_edge_tpu_torch.ops import window as Wn
+    from canny_edge_tpu_torch.ops.gaussian import gaussian_kernel
+    from canny_edge_tpu_torch.utils.roofline import kernel_bounds
+
+    t0 = time.perf_counter()
+    kern = gaussian_kernel(SIGMA)
+    taps = torch.from_numpy(kern).to(dev)
+    rng = np.random.default_rng(13)
+    mods = {"frontend": kfe, "hysteresis_packed": khp,
+            "hysteresis_dilate": k3, "hysteresis_banded": k4}
+    rep = {"cases": [], "sweeps": {}}
+    err = dict.fromkeys(mods, 0)
+    plain_s = {}                 # seconds of the plain versions, by case
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def u32eq(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    def on_card(x):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(dev)
+
+    def plain(tag, fn):
+        """``fn()``, a stack of plain versions, timed on the card."""
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        plain_s[tag] = time.perf_counter() - t
+        return out
+
+    def check_k1(tag, imgs):
+        """K1 on the batch ``imgs`` against its frames and the plain
+        version; returns the batch's NMS map."""
+        frames = list(imgs.unbind(0))
+        nm = kfe.frontend(imgs, taps)
+        weak, strong = kfe.frontend(imgs, taps, (MN, MX))
+        singles = [kfe.frontend(f, taps) for f in frames]
+        masks = [kfe.frontend(f, taps, (MN, MX)) for f in frames]
+        ref = torch.stack([Wn.frontend_nm(f, kern) for f in frames])
+        pm = plain(f"frontend/{tag}", lambda: [
+            Wn.frontend_nm(f, kern, (MN, MX)) for f in frames])
+        sync()
+        err["frontend"] = max(err["frontend"], int(
+            (nm.to(torch.int32) - ref).abs().max()))
+        check(nm.shape == imgs.shape and torch.equal(nm, torch.stack(singles))
+              and torch.equal(nm.to(torch.int32), ref),
+              f"K1 batch NMS map differs: {tag}")
+        for i in (0, 1):
+            check(u32eq((weak, strong)[i], torch.stack([m[i] for m in masks]))
+                  and u32eq((weak, strong)[i], torch.stack([m[i] for m in pm]))
+                  and u32eq((weak, strong)[i], P.pack_mask(ref >= (MN, MX)[i])),
+                  f"K1 batch masks differ: {tag}")
+        return nm
+
+    def check_k2(tag, nm, lo, hi):
+        """K2 in its four modes, component and strict, on the batch ``nm``
+        against its frames and the plain flood."""
+        h, w = nm.shape[-2:]
+        frames = list(nm.unbind(0))
+        weak, strong = P.pack_mask(nm >= lo), P.pack_mask(nm >= hi)
+        for strict in (False, True):
+            ref = plain(f"hysteresis_packed{'_strict' * strict}/{tag}",
+                        lambda: torch.stack([
+                            P.hysteresis_packed_masks(
+                                wf, sf, h, w, strict=strict)[0]
+                            for wf, sf in zip(weak, strong)]))
+            ref16 = P.unpack_edges(ref, w)
+            calls = dict(P.calls)
+            outs = [khp.hysteresis_packed(weak, strong, h, w, strict=strict),
+                    khp.hysteresis_packed(weak, strong, h, w, strict=strict,
+                                          edges_int16=True)]
+            for t in (nm.to(torch.int16), nm.to(torch.int32)):
+                outs += [khp.hysteresis_packed_nm(t, lo, hi, strict=strict,
+                                                  packed_out=True),
+                         khp.hysteresis_packed_nm(t, lo, hi, strict=strict)]
+            outs += [torch.stack([khp.hysteresis_packed_nm(
+                f, lo, hi, strict=strict, packed_out=packed)
+                for f in frames]) for packed in (True, False)]
+            sync()
+            check(P.calls == calls, f"K2 batch ran a plain pack/unpack: {tag}")
+            for o in outs:
+                if o.dtype == torch.int16:
+                    check(o.shape == nm.shape and torch.equal(o, ref16),
+                          f"K2 batch int16 output differs: {tag} {strict}")
+                    err["hysteresis_packed"] = max(
+                        err["hysteresis_packed"],
+                        int((o - ref16).abs().max()) // 255)
+                else:
+                    check(u32eq(o, ref),
+                          f"K2 batch packed output differs: {tag} {strict}")
+
+    def check_engines(tag, nm, lo, hi,
+                      plain_engines=("hysteresis_dilate", "hysteresis_banded")):
+        """K3 and K4 on the batch ``nm`` against their frames (sweeps: the
+        batch's is the most of a frame) and the plain versions; an engine
+        not in ``plain_engines`` against the plain packed flood, the same
+        function, where its own plain sweeps take seconds to minutes (K3 on
+        the serpentine, K4's row loop over a 257-row band)."""
+        frames = list(nm.unbind(0))
+        flood = None
+        for name, fn, plain_fn in (
+                ("hysteresis_dilate", k3.hysteresis_dilate,
+                 Dl.hysteresis_dilate),
+                ("hysteresis_banded", k4.hysteresis_banded,
+                 Bd.hysteresis_banded)):
+            out, sweeps = fn(nm, lo, hi, return_sweeps=True)
+            singles = [fn(f, lo, hi, return_sweeps=True) for f in frames]
+            sync()
+            most = max(s for _, s in singles)
+            check(out.shape == nm.shape
+                  and torch.equal(out, torch.stack([o for o, _ in singles]))
+                  and sweeps == most,
+                  f"{name} batch differs from its frames: {tag} (sweeps "
+                  f"{sweeps}, frames {[s for _, s in singles]})")
+            if name in plain_engines:
+                kw = ({"band_h": k4.banded_stats(frames[0], lo, hi)[1][
+                    "band_h"]} if name == "hysteresis_banded" else {})
+                refs = plain(f"{name}/{tag}", lambda: [
+                    plain_fn(f, lo, hi, return_sweeps=True, **kw)
+                    for f in frames])
+                ref = torch.stack([r for r, _ in refs])
+                check(most == max(s for _, s in refs),
+                      f"{name}: frames' sweeps {[s for _, s in singles]}, "
+                      f"plain {[s for _, s in refs]}: {tag}")
+            else:
+                if flood is None:
+                    flood = plain(f"flood/{tag}",
+                                  lambda: P.hysteresis_packed(nm, lo, hi))
+                ref = flood
+            check(torch.equal(out, ref),
+                  f"{name} batch differs from the plain version: {tag}")
+            err[name] = max(err[name], int(
+                (out.to(torch.int32) - ref).abs().max()))
+            rep["sweeps"][f"{name}/{tag}"] = {
+                "batch": sweeps, "frames": [s for _, s in singles]}
+
+    # ---- bit-equality: the batches ----
+    imgs8 = on_card(np.stack([make_image(*hw, seed=s) for s in range(batch)]))
+    imgs4k = on_card(np.stack([make_image(*hw4k, seed=s)
+                               for s in range(batch4k)]))
+    for tag, imgs in ((f"{batch}x{hw[0]}x{hw[1]}", imgs8),
+                      (f"{batch4k}x{hw4k[0]}x{hw4k[1]}", imgs4k)):
+        nm = check_k1(tag, imgs)
+        check_k2(tag, nm, MN, MX)
+        check_engines(tag, nm, MN, MX)
+        rep["cases"].append(tag)
+    h, w = hw
+    mixed = on_card(np.stack([np.zeros((h, w), np.int32), snake_nm(h, w),
+                              random_nm(rng, h, w).astype(np.int32)]))
+    check_k2("mixed", mixed, 10, 100)
+    check_engines("mixed", mixed, 10, 100, plain_engines=())
+    rep["cases"].append("mixed: empty, serpentine, random")
+    for rh, rw in ragged:
+        tag = f"3x{rh}x{rw}"
+        nm = check_k1(tag, on_card(np.stack([make_image(rh, rw, seed=s)
+                                             for s in range(3)])))
+        rnd = on_card(np.stack([random_nm(rng, rh, rw) for _ in range(3)]))
+        for t, m in ((tag, nm), (f"{tag}/random", rnd)):
+            check_k2(t, m, MN, MX)
+            check_engines(t, m, MN, MX, ("hysteresis_dilate",) if rh > 200
+                          else ("hysteresis_dilate", "hysteresis_banded"))
+            rep["cases"].append(t)
+    rep["check_s"] = time.perf_counter() - t0
+    log(f"batch path bit-equal on {rep['cases']}: sweeps {rep['sweeps']}")
+
+    # ---- the main path: one launch of each stage a batch ----
+    t1 = time.perf_counter()
+    models = {"fused": CannyTorch(SIGMA, device=dev),
+              "pallas": CannyTorch(SIGMA, device=dev, backend="pallas"),
+              "fused-strict": CannyTorch(SIGMA, device=dev,
+                                         hysteresis_mode="strict-reference")}
+    for m in mods.values():
+        m.launches = m.batch_launches = 0
+    one_each = {"frontend": 1, "hysteresis_packed": 1}
+    expect, outs, per_run = {}, {}, {}
+    for size, imgs in (("1080p", imgs8), ("4k", imgs4k)):
+        runs = {f"{m}.batch": (lambda m=m: models[m].batch(imgs, MN, MX),
+                               one_each) for m in models}
+        runs["fused.batch_packed"] = (
+            lambda: models["fused"].batch_packed(imgs, MN, MX), one_each)
+        for impl in IMPLS:
+            engine = {"packed": "hysteresis_packed", "packed-xla": None,
+                      "banded": "hysteresis_banded",
+                      "dilate": "hysteresis_dilate"}[impl]
+            runs[f"canny_fused/{impl}"] = (
+                lambda impl=impl: canny_fused(imgs, MN, MX, kernel_vals=taps,
+                                              hysteresis_impl=impl),
+                {"frontend": 1, **({engine: 1} if engine else {})})
+        for run, (fn, want) in runs.items():
+            before = {k: m.launches for k, m in mods.items()}
+            outs[run, size] = fn()
+            per_run[f"{run}/{size}"] = {
+                k: m.launches - before[k] for k, m in mods.items()}
+            expect[f"{run}/{size}"] = {k: want.get(k, 0) for k in mods}
+    sync()
+    launches = {k: m.launches for k, m in mods.items()}
+    batch_launches = {k: m.batch_launches for k, m in mods.items()}
+    log(f"batch path launches: {launches} by run {per_run}")
+    check(per_run == expect, f"the batch path's launches {per_run}, expected "
+          f"exactly one of each stage a batch: {expect}")
+    check(batch_launches == launches and all(launches.values()),
+          f"batch launches {batch_launches} of {launches}")
+    for size, imgs in (("1080p", imgs8), ("4k", imgs4k)):
+        refs = {s: torch.stack([P.hysteresis_packed(Wn.frontend_nm(f, kern),
+                                                    MN, MX, strict=s)
+                                for f in imgs]) for s in (False, True)}
+        for (run, sz), got in outs.items():
+            if sz != size:
+                continue
+            want = refs["strict" in run]
+            if run.endswith("batch_packed"):
+                got = P.unpack_edges(got, want.shape[-1])
+            check(torch.equal(got, want),
+                  f"{run} on {size} differs from the plain pipeline")
+        single = torch.stack([models["fused"](f, MN, MX) for f in imgs])
+        check(torch.equal(outs["fused.batch", size], single),
+              f"fused batch differs from its frames one by one: {size}")
+    rep["launches"] = launches
+    rep["by_run"] = per_run
+    rep["main_path_s"] = time.perf_counter() - t1
+
+    # ---- times: a batch against its frames one by one ----
+    t1 = time.perf_counter()
+    times = {}
+    model = models["fused"]
+    for size, imgs in (("1080p", imgs8), ("4k", imgs4k)):
+        b, h, w = imgs.shape
+        frames = list(imgs.unbind(0))
+        nm = kfe.frontend(imgs, taps)
+        nms = list(nm.unbind(0))
+        weak, strong = kfe.frontend(imgs, taps, (MN, MX))
+        wf, sf = list(weak.unbind(0)), list(strong.unbind(0))
+        fns = {
+            "k1": (lambda: kfe.frontend(imgs, taps, (MN, MX)),
+                   lambda: [kfe.frontend(f, taps, (MN, MX)) for f in frames]),
+            "k2": (lambda: khp.hysteresis_packed(weak, strong, h, w),
+                   lambda: [khp.hysteresis_packed(x, y, h, w)
+                            for x, y in zip(wf, sf)]),
+            "k3": (lambda: k3.hysteresis_dilate(nm, MN, MX),
+                   lambda: [k3.hysteresis_dilate(f, MN, MX) for f in nms]),
+            "k4": (lambda: k4.hysteresis_banded(nm, MN, MX),
+                   lambda: [k4.hysteresis_banded(f, MN, MX) for f in nms]),
+            "fused_batch": (lambda: model.batch(imgs, MN, MX),
+                            lambda: [model(f, MN, MX) for f in frames]),
+        }
+        t = {"frames": b}
+        for key, (fb, fs) in fns.items():
+            t[f"{key}_ms"] = time_ms(fb, 20, 3)
+            t[f"{key}_frames_ms"] = time_ms(fs, 10, 3)
+            t[f"{key}_host_ms"] = host_ms(fb, 100)
+            t[f"{key}_frames_host_ms"] = host_ms(fs, 20)
+            for tag, fn in (("", fb), ("_frames", fs)):
+                by = device_ms(fn)
+                t[f"{key}{tag}_device_ms"] = (sum(by.values()) if by
+                                              else "not measured")
+        kb = kernel_bounds(hw=(h, w), window=len(kern), batch=b)
+        for k, name in (("k1", "frontend"), ("k2", "hysteresis_packed"),
+                        ("k3", "hysteresis_dilate"),
+                        ("k4", "hysteresis_banded")):
+            t[f"{k}_bound_ms"] = kb[name]["bound_ms"]
+            t[f"{k}_bound_by"] = kb[name]["bound_by"]
+        times[size] = t
+        log(f"batch times {size}: {t}")
+    rep["times"] = times
+    rep["times_s"] = time.perf_counter() - t1
+
+    t8, t4 = times["1080p"], times["4k"]
+    tag8, tag4 = (f"{batch}x{hw[0]}x{hw[1]}",
+                  f"{batch4k}x{hw4k[0]}x{hw4k[1]}")
+    entries = []
+    for k, name, src, line in (
+            ("k1", "frontend", "frontend.cu", "frontend.py:153"),
+            ("k2", "hysteresis_packed", "hysteresis_packed.cu",
+             "hysteresis_packed.py:180"),
+            ("k3", "hysteresis_dilate", "hysteresis_dilate.cu",
+             "hysteresis.py:41"),
+            ("k4", "hysteresis_banded", "hysteresis_banded.cu",
+             "hysteresis_v2.py:70")):
+        entries.append({
+            "name": f"{name}_batch", "route": "cuda",
+            "source": f"canny_edge_tpu_torch/kernels/csrc/{src}",
+            "replaces": ("canny_edge_tpu/kernels/"
+                         + ("hysteresis_packed.py:348" if k == "k2" else
+                            "fused.py:47") + f" (jax.vmap over "
+                         f"canny_edge_tpu/kernels/{line})"),
+            "launches": batch_launches[name], "max_abs_err": err[name],
+            "ms": t8[f"{k}_ms"],
+            "plain_ms": plain_s[f"{name}/{tag8}"] * 1e3,
+            "bound_ms": t8[f"{k}_bound_ms"], "bound_by": t8[f"{k}_bound_by"],
+            "library_ms": None, "match": True, "batch": batch, "of": name,
+            "shape": tag8, "frames_ms": t8[f"{k}_frames_ms"],
+            "device_ms": t8[f"{k}_device_ms"],
+            "frames_device_ms": t8[f"{k}_frames_device_ms"],
+            "host_ms": t8[f"{k}_host_ms"], "ms_4k": t4[f"{k}_ms"],
+            "shape_4k": tag4, "bound_ms_4k": t4[f"{k}_bound_ms"],
+            "plain_ms_4k": plain_s[f"{name}/{tag4}"] * 1e3})
+    rep["plain_s"] = plain_s
+    rep["max_abs_err"] = err
+    rep["s"] = time.perf_counter() - t0
+    return rep, entries
+
+
+def check_bounds(kernels):
+    """Every ``bound_ms`` of the ``kernels`` line is
+    ``utils.roofline.kernel_bounds``': a batch row's (``"batch"``) that of
+    its single-frame kernel (``"of"``) at its batch."""
+    from canny_edge_tpu_torch.utils.roofline import kernel_bounds
+
+    for k in kernels:
+        want = kernel_bounds(batch=k.get("batch"))[k.get("of", k["name"])]
+        check(k["bound_ms"] == want["bound_ms"]
+              and k["bound_by"] == want["bound_by"],
+              f"{k['name']} bound {k['bound_ms']} {k['bound_by']}, "
+              f"kernel_bounds {want}")
+
+
 def bench_phase(kernels, samples=3, hw=SIZES["1080p"]):
     """Phase 12: ``bench_torch.measure`` in this process at ``samples``
     samples a backend.  Checks that every backend gives MP/s, that the best
@@ -807,15 +1162,9 @@ def bench_phase(kernels, samples=3, hw=SIZES["1080p"]):
     alu = rows["frontend"]["audit"]["alu"]
     check(50 <= alu <= 400, f"bench: the front end's audited alu is {alu} "
           f"a pixel")
-    kb = kernel_bounds()
-    for k in kernels:
-        want = kb[k["name"]]
-        check(k["bound_ms"] == want["bound_ms"]
-              and k["bound_by"] == want["bound_by"],
-              f"bench: {k['name']} bound {k['bound_ms']} {k['bound_by']}, "
-              f"kernel_bounds {want}")
+    check_bounds(kernels)
     check(kernels[1]["nm_int16_bound_ms"]
-          == kb["hysteresis_packed_nm_int16"]["bound_ms"],
+          == kernel_bounds()["hysteresis_packed_nm_int16"]["bound_ms"],
           "bench: K2's NMS-map bound differs from kernel_bounds")
     rec["s"] = time.perf_counter() - t0
     return rec
@@ -1009,8 +1358,10 @@ def main():
     sync()
     counts = {"frontend": kfe.launches, "hysteresis_packed": khp.launches}
     log(f"main path launches: {counts}")
-    check(counts["frontend"] > 0 and counts["hysteresis_packed"] > 0,
-          f"a kernel of the main path was not launched: {counts}")
+    # one launch of each stage a call: __call__, packed and the batch
+    want = 3 * len(models) * len(frames)
+    check(counts == {"frontend": want, "hysteresis_packed": want},
+          f"the main path launched {counts}, not {want} of each kernel")
     check(P.calls == plain_calls,
           f"the main path called a plain pack/unpack: {P.calls} from "
           f"{plain_calls}")
@@ -1544,6 +1895,20 @@ def main():
     # ---- 12. the port's headline bench, in this process ----
     bench = bench_phase(kernels)
     report["bench"] = bench
+
+    # ---- 13. the batch path ----
+    report["batch_path"], batch_kernels = batch_phase(dev, time_ms, host_ms,
+                                                      device_ms)
+    check_bounds(batch_kernels)
+    kernels += batch_kernels
+    bt = report["batch_path"]["times"]
+    print("batch: " + json.dumps({
+        "card": card, "launches": report["batch_path"]["launches"],
+        "sweeps": report["batch_path"]["sweeps"],
+        "times": {size: {k: v for k, v in t.items()
+                         if k.endswith("_ms") or k == "frames"}
+                  for size, t in bt.items()},
+        "s": report["batch_path"]["s"]}), flush=True)
     report["total_s"] = time.perf_counter() - t_run
     log("report: " + json.dumps(report))
     out_dir = os.path.join(ROOT, "chiprun_out")     # listed in .gitignore

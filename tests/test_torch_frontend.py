@@ -112,7 +112,7 @@ def test_frontend_wrapper_cpu_uses_plain(test_image):
 
 
 @pytest.mark.parametrize("bad", [np.zeros((4, 4), np.float32),
-                                 np.zeros((2, 4, 4), np.uint8),
+                                 np.zeros((2, 2, 4, 4), np.uint8),
                                  np.zeros((0, 4), np.uint8)])
 def test_frontend_wrapper_rejects(bad):
     with pytest.raises(ValueError):

@@ -248,7 +248,7 @@ def test_wrappers_cpu_use_plain():
 
 
 @pytest.mark.parametrize("bad", [np.zeros((4, 4), np.float32),
-                                 np.zeros((2, 4, 4), np.int16),
+                                 np.zeros((2, 2, 4, 4), np.int16),
                                  np.zeros((0, 4), np.int16),
                                  np.zeros((4, 4), np.uint8)])
 def test_wrappers_reject(bad):

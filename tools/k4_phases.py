@@ -46,7 +46,8 @@ PATCHES = [
     ("tok, gtid, nthreads);\n    grid.sync();\n",
      "tok, gtid, nthreads);\n    if (s == 0) stamp(11);\n    grid.sync();\n"
      "    if (s == 0) stamp(12);\n"),
-    ("a.out, gtid, nthreads);\n}", "a.out, gtid, nthreads);\n  stamp(13);\n}"),
+    ("a.out, gtid,\n               nthreads);\n}",
+     "a.out, gtid,\n               nthreads);\n  stamp(13);\n}"),
     ("      __syncthreads();\n      const int mine = base",
      "      __syncthreads();\n      stamp(3);\n      const int mine = base"),
     ("      pass(std::true_type{}, true);\n      pass(std::true_type{}, false);\n",
@@ -110,7 +111,7 @@ def main():
         for it in range(9):
             err = lib.canny_banded(
                 nm.data_ptr(), 2, cs.MN, cs.MX, weak.data_ptr(), e0.data_ptr(),
-                e1.data_ptr(), out.data_ptr(), h, w, 64, ctl.data_ptr(),
+                e1.data_ptr(), out.data_ptr(), 1, h, w, 64, ctl.data_ptr(),
                 (it + 1) << 32, torch.cuda.current_stream().cuda_stream)
             if err:
                 raise SystemExit(f"canny_banded: CUDA error {err}")
