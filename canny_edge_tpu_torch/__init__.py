@@ -9,6 +9,7 @@ with its frame sources, native feeder, streaming runner, timing and trace.
 Imports neither JAX nor the JAX package.
 """
 
+from . import golden  # noqa: F401  (JAX's package exports it)
 from .models.canny import CannyTorch
 from .models.sobel import SobelTorch
 

@@ -11,6 +11,7 @@ time); a CUDA tensor goes to the kernel or raises.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.packed import cdiv
@@ -82,8 +83,9 @@ def _launch(entry: str, args, src: torch.Tensor, taps: torch.Tensor,
 def frontend(img: torch.Tensor, taps: torch.Tensor, thresholds=None):
     """Front end on ``img``'s device; ``taps``: float32 Gaussian weights.
 
-    ``img``: uint8 ``(H, W)`` or a batch ``(B, H, W)``, 1 <= B <= 65535,
-    whose results stack the frames' (one launch on the card).
+    ``img``: uint8 ``(H, W)`` or a batch ``(B, H, W)`` whose results stack
+    the frames' (one launch on the card for up to ``MAX_BATCH`` frames, a
+    launch a chunk of that many above it).
     ``thresholds``: optional ``(min_val, max_val)`` integers.
     """
     global launches, batch_launches
@@ -92,9 +94,6 @@ def frontend(img: torch.Tensor, taps: torch.Tensor, thresholds=None):
         raise ValueError(f"expected a non-empty uint8 (H, W) image or "
                          f"(B, H, W) batch, got {img.dtype} "
                          f"{tuple(img.shape)}")
-    if img.dim() == 3 and img.shape[0] > MAX_BATCH:
-        raise ValueError(f"a batch of {img.shape[0]} frames: one launch "
-                         f"takes at most {MAX_BATCH}")
     _check_taps(taps)
     if img.device.type == "cpu":
         if img.dim() == 3:
@@ -104,12 +103,43 @@ def frontend(img: torch.Tensor, taps: torch.Tensor, thresholds=None):
         res = frontend_plain(img, taps.cpu().numpy(), thresholds)
         return res.to(torch.int16) if thresholds is None else res
     img = img.contiguous()
-    b, (h, w) = (img.shape[0] if img.dim() == 3 else 1), img.shape[-2:]
-    res = _launch("canny_frontend", (b, h, w), img, taps, h, w, thresholds,
-                  img.shape[:-2])
-    launches += 1
-    batch_launches += b > 1
-    return res
+    h, w = img.shape[-2:]
+    # a launch a chunk of at most MAX_BATCH frames (the grid's z limit)
+    parts = []
+    for chunk in (img.split(MAX_BATCH) if img.dim() == 3 else (img,)):
+        b = chunk.shape[0] if chunk.dim() == 3 else 1
+        parts.append(_launch("canny_frontend", (b, h, w), chunk, taps, h, w,
+                             thresholds, chunk.shape[:-2]))
+        launches += 1
+        batch_launches += b > 1
+    if len(parts) == 1:
+        return parts[0]
+    return (torch.cat(parts) if thresholds is None else
+            tuple(torch.cat(m) for m in zip(*parts)))
+
+
+def frontend_nm(img: torch.Tensor, kernel_vals, *, tile=None, interpret=None,
+                indexing: str = "element", border: str = "strips"):
+    """JAX's K1 wrapper under its name and keywords
+    (``canny_edge_tpu/kernels/frontend.py:frontend_nm``): uint8 ``(H, W)``
+    (or a batch) -> int16 NMS magnitude, :func:`frontend` with the taps
+    ``kernel_vals`` (a sequence, an array or a tensor) on ``img``'s device.
+
+    ``tile``, ``interpret`` and ``indexing`` are accepted and unused: they
+    chose the TPU kernel's tiles, its interpreter and its ``BlockSpec``
+    indexing, none of which changes the result.  ``border`` takes only
+    ``"strips"``, the exact border: JAX's ``"none"`` leaves the border
+    frame wrong, for profiling, and the port has no such variant.
+    """
+    del tile, interpret, indexing
+    if border != "strips":
+        raise ValueError(f"border={border!r}: only the exact border "
+                         f"('strips') exists here")
+    if not isinstance(kernel_vals, torch.Tensor):
+        kernel_vals = torch.from_numpy(
+            np.asarray(kernel_vals, np.float32).copy())
+    return frontend(img, kernel_vals.to(device=img.device,
+                                        dtype=torch.float32))
 
 
 def frontend_block(window: torch.Tensor, row0: int, col0: int, H: int,

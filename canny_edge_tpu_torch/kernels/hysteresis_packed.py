@@ -142,8 +142,31 @@ def hysteresis_packed(weak: torch.Tensor, strong: torch.Tensor, height: int,
     return (out, steps) if return_steps else out
 
 
+def hysteresis_packed_pallas_masks(weak_p: torch.Tensor,
+                                   strong_p: torch.Tensor, height: int,
+                                   width: int, *, inner_dilate: int = 19,
+                                   interpret=None, layout: str = "transposed",
+                                   vmem_budget=None, strict: bool = False,
+                                   quirk_rw=(0, 0)):
+    """JAX's flood of packed masks under its name and keywords
+    (``canny_edge_tpu/kernels/hysteresis_packed.py:
+    hysteresis_packed_pallas_masks``): :func:`hysteresis_packed`, K2 on a
+    CUDA tensor.  Returns the packed edge mask.
+
+    ``inner_dilate``, ``interpret``, ``layout`` and ``vmem_budget`` are
+    accepted and unused: they chose the TPU kernel's dilations a round, its
+    interpreter, its VMEM layout and its VMEM budget (with a fallback to
+    the XLA flood past it), none of which changes the result; K2 floods any
+    shape in tiles of 8 x 32 words.
+    """
+    del inner_dilate, interpret, layout, vmem_budget
+    return hysteresis_packed(weak_p, strong_p, height, width, strict=strict,
+                             quirk_rw=quirk_rw)
+
+
 def hysteresis_packed_nm(nm: torch.Tensor, min_val: int, max_val: int, *,
-                         strict: bool = False, packed_out: bool = False,
+                         inner_dilate: int = 19, strict: bool = False,
+                         packed_out: bool = False,
                          return_steps: bool = False):
     """int16/int32 NMS magnitude (H, W) or (B, H, W) -> int16 {0, 255}.
 
@@ -154,8 +177,10 @@ def hysteresis_packed_nm(nm: torch.Tensor, min_val: int, max_val: int, *,
     frame converging on its own); on the CPU they are the plain versions, a
     frame at a time.  ``packed_out``: return the packed uint32 edge mask
     instead.  ``return_steps`` (one frame only): as in
-    :func:`hysteresis_packed`.
+    :func:`hysteresis_packed`.  ``inner_dilate`` is accepted and unused, as
+    by :func:`hysteresis_packed_pallas_masks`.
     """
+    del inner_dilate
     if nm.dim() not in (2, 3) or nm.numel() == 0 \
             or nm.dtype not in (torch.int16, torch.int32):
         raise ValueError("expected a non-empty int16/int32 (H, W) or (B, H, W) "

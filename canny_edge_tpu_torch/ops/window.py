@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .packed import pack_mask
+from .packed import cdiv, pack_mask  # noqa: F401  (cdiv: JAX's ops.window)
 from .shifts import clamp_shift_cols, clamp_shift_rows
 
 NMS_OOB = -32768
@@ -79,9 +79,10 @@ def blur(img: torch.Tensor, kernel) -> torch.Tensor:
         acc / torch.from_numpy(renorm_count(h, kernel)).to(dev)[:, None])
 
 
-def sobel(sm: torch.Tensor):
-    """Integer-valued (..., H, W) -> int32 (gx, gy) with the reference borders."""
-    s = sm.to(torch.int32)
+def sobel(img: torch.Tensor):
+    """Integer-valued (..., H, W) -> int32 (gx, gy) with the reference borders
+    (``img``: the blurred frame; JAX's ``xy_gradient`` names it so)."""
+    s = img.to(torch.int32)
     d = clamp_shift_cols(s, 1) - clamp_shift_cols(s, -1)
     gx = 2 * d
     gx[..., :-1, :] += d[..., 1:, :]
@@ -194,3 +195,18 @@ def frontend_nm(img: torch.Tensor, kernel, thresholds=None):
     h, w = img.shape
     return frontend_block(F.pad(img, (r, r, r, r)), 0, 0, h, w, kernel,
                           thresholds)
+
+
+def frontend_nm_xla(img: torch.Tensor, kernel_vals, *, whole_h: int = 1440,
+                    band_h: int = 720, thresholds=None):
+    """JAX's production XLA front end under its name and keywords
+    (``canny_edge_tpu/ops/window.py:frontend_nm_xla``): :func:`frontend_nm`.
+
+    uint8 (H, W) -> int32 NMS magnitude, or with ``thresholds = (min_val,
+    max_val)`` the packed uint32 ``(weak, strong)`` masks.  JAX's function
+    is XLA ops, not a kernel, so its counterpart is this plain version, as
+    the ``xla`` backend's is.  ``whole_h`` and ``band_h`` are accepted and
+    unused: they chose XLA:TPU's banding, which changes no result.
+    """
+    del whole_h, band_h
+    return frontend_nm(img, kernel_vals, thresholds)

@@ -18,11 +18,11 @@ a pixel (``floor_model: "audit_alu"``), without one the hand model below
 (``"hand_modeled_alu"``).  Each row carries both counts, so the gap between
 them is on record.
 
-The peak table is keyed by ``torch.cuda.get_device_name()``; a card not in
-it gets no floors (``None``) and ``"bound": "unknown card"``: there is no
-default peak.  The JAX package's two-bucket floor charged movement at a
-rate measured on its chip; no such rate was measured on this card, so it is
-not offered.
+The peak table is keyed by ``torch.cuda.get_device_name()``, the
+``device_kind`` argument (JAX's name); a card not in it gets no floors
+(``None``) and ``"bound": "unknown card"``: there is no default peak.  The
+JAX package's two-bucket floor charged movement at a rate measured on its
+chip; no such rate was measured on this card, so it is not offered.
 """
 
 from __future__ import annotations
@@ -54,21 +54,21 @@ def k1_ops_per_px(window: int) -> int:
     return 4 * window + 45
 
 
-def chip_peaks(device_name: str) -> dict | None:
+def chip_peaks(device_kind: str) -> dict | None:
     """The card's published peaks, or None for a card not in the table."""
-    return PEAKS.get(device_name)
+    return PEAKS.get(device_kind)
 
 
-def chip_bandwidth_gbps(device_name: str) -> float | None:
+def chip_bandwidth_gbps(device_kind: str) -> float | None:
     """Published HBM rate in GB/s, or None for an unknown card."""
-    peaks = chip_peaks(device_name)
+    peaks = chip_peaks(device_kind)
     return None if peaks is None else peaks["hbm_bytes_per_s"] / 1e9
 
 
-def chip_ops_per_s(device_name: str) -> float | None:
+def chip_ops_per_s(device_kind: str) -> float | None:
     """Separate (unfused) operations a second, half the published float32
     rate; None for an unknown card.  The counterpart of ``chip_vpu_ops``."""
-    peaks = chip_peaks(device_name)
+    peaks = chip_peaks(device_kind)
     return None if peaks is None else peaks["f32_fma_ops_per_s"] / 2
 
 
@@ -82,8 +82,10 @@ class StageTraffic:
     def mem_seconds(self, pixels: int, bw_gbps: float) -> float:
         return self.bytes_per_pixel * pixels / (bw_gbps * 1e9)
 
-    def compute_seconds(self, pixels: int, ops_per_s: float) -> float:
-        return self.ops_per_pixel * pixels / ops_per_s
+    def compute_seconds(self, pixels: int, vpu_ops: float) -> float:
+        """``vpu_ops``: the card's rate of separate operations a second
+        (JAX's name, for its vector unit's rate)."""
+        return self.ops_per_pixel * pixels / vpu_ops
 
 
 def backend_stages(backend: str, window: int = 11) -> list[StageTraffic]:
@@ -110,7 +112,7 @@ def backend_stages(backend: str, window: int = 11) -> list[StageTraffic]:
 
 
 def stage_rooflines(pixels: int, measured_seconds: dict[str, float],
-                    device_name: str, backend: str = "xla",
+                    device_kind: str, backend: str = "xla",
                     audited_ops: dict[str, dict] | None = None,
                     window: int = 11) -> list[dict]:
     """One row a measured stage: its time, both floors, the binding one
@@ -120,11 +122,11 @@ def stage_rooflines(pixels: int, measured_seconds: dict[str, float],
     audited ``alu`` count takes it as its compute floor (``floor_model``
     ``"audit_alu"``), else the hand model's (``"hand_modeled_alu"``).
     Every row holds ``est_ops_per_px`` (the hand model) and ``audit`` (the
-    audit's buckets, or None).  An unknown ``device_name`` gives None floors
+    audit's buckets, or None).  An unknown ``device_kind`` gives None floors
     and ``"bound": "unknown card"``.
     """
-    bw = chip_bandwidth_gbps(device_name)
-    ops_rate = chip_ops_per_s(device_name)
+    bw = chip_bandwidth_gbps(device_kind)
+    ops_rate = chip_ops_per_s(device_kind)
     by_name = {s.name: s for s in backend_stages(backend, window)}
     rows = []
     for name, sec in measured_seconds.items():
@@ -158,17 +160,17 @@ def stage_rooflines(pixels: int, measured_seconds: dict[str, float],
 
 
 def report(pixels: int, measured_seconds: dict[str, float],
-           device_name: str, stages=None, backend: str = "xla",
+           device_kind: str, stages=None, backend: str = "xla",
            window: int = 11) -> str:
     """Text roofline: stage, time, least time, what binds, % of it (from
     the hand model, or ``stages``)."""
     by_name = {s.name: s for s in (stages if stages is not None
                                    else backend_stages(backend, window))}
-    bw = chip_bandwidth_gbps(device_name)
+    bw = chip_bandwidth_gbps(device_kind)
     if bw is None:
-        return f"roofline vs {device_name}: unknown card, no floors"
-    ops_rate = chip_ops_per_s(device_name)
-    lines = [f"roofline vs {device_name} @ {bw:.0f} GB/s HBM, "
+        return f"roofline vs {device_kind}: unknown card, no floors"
+    ops_rate = chip_ops_per_s(device_kind)
+    lines = [f"roofline vs {device_kind} @ {bw:.0f} GB/s HBM, "
              f"{ops_rate / 1e12:.2f} Tops separate",
              f"{'stage':<18}{'ms':>9}{'min ms':>9}{'bound':>7}"
              f"{'% of SoL':>10}"]

@@ -5,9 +5,10 @@ front end -> K2 packed flood -> unpack) and the ``pallas`` backend
 raster scan); then drives the command line (frames in, batched and staged
 onto the card, K1 -> K2 a frame, PNGs out), the stage path and
 ``SobelTorch`` on the card, the multi-device path (``ShardedCanny``: K1 in
-block mode -> the distributed K2 flood) over meshes on the one card, and
+block mode -> the distributed K2 flood) over meshes on the one card,
 the port's headline bench (``bench_torch.py``: ``canny_fn``'s three
-backends at 1080p, with the roofline of their stages).
+backends at 1080p, with the roofline of their stages), the batch path, and
+a seeded sweep of every kernel mode over random geometry (phase 14).
 
     python3 chip_smoke.py
 
@@ -99,7 +100,17 @@ Phases (any failure exits non-zero and prints no result):
      for ``fused`` ``batch`` / ``batch_packed``, ``pallas`` and
      ``canny_fused`` with each engine); a batch's wall, host enqueue and
      device time beside its frames one by one, printed on a ``batch:``
-     line; the batch rows' bounds held equal to ``kernel_bounds(batch=B)``.
+     line; the batch rows' bounds held equal to ``kernel_bounds(batch=B)``;
+ 14. the seeded sweep (``sweep_configs``: 24 drawn frame configurations,
+     the JAX package's fuzz configurations and degenerate shapes, and its
+     13 sharded ones): K1 in NMS, threshold and batch mode, K2's modes with
+     the strict fix at a random (row, word), K3 and K4 on K1's maps and
+     random, serpentine and sparse ones, each against its plain version
+     (K2 also against its tile mirror, K4 at the band that ran), the entry
+     points of each backend against the CPU and ``golden``, ``ShardedCanny``
+     (K1 block mode, K2's quirk, the generic engine) against the fused
+     backend and ``golden``, and K1 on 65537 frames; printed on a ``sweep:``
+     line (cases by kernel and mode, launches, mismatches, seconds).
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Every measured number also goes to
 standard error as one ``report:`` JSON line and to
@@ -185,6 +196,160 @@ def random_nm(rng, h, w):
     nm = rng.integers(0, 100, (h, w)).astype(np.int16)
     nm[rng.random((h, w)) < 0.45] = 0
     return nm
+
+
+# ---------------------------------------------------------------------------
+# the seeded sweep (phase 14; tests/test_torch_sweep.py imports it)
+# ---------------------------------------------------------------------------
+
+SWEEP_SEED = 20261017
+SWEEP_SIGMAS = (0.3, 0.5, 0.75, 1.0, 1.4, 2.0, 2.5, 3.0, 4.9, 6.0)
+FORCED_THRESHOLDS = ((0, 1), (0, 255), (254, 255))
+# Sizes near which a kernel's geometry changes, by axis: 16 (K1's 16-byte
+# loads), 32 (a packed word), K1's 64x64 tile, K2's tile of 8 rows x 32
+# words (1024 columns), K3's 128x512 tile, K4's default band (64 rows from
+# 512 rows on, the whole image below) and its words a lane (1024 columns).
+ROW_EDGES = (8, 16, 32, 64, 128, 512)
+COL_EDGES = (16, 32, 64, 512, 1024)
+# every factorization of 8 devices into (data, y, x)
+MESHES = ((1, 1, 8), (1, 8, 1), (1, 2, 4), (1, 4, 2), (2, 2, 2),
+          (2, 1, 4), (2, 4, 1), (4, 2, 1), (4, 1, 2), (8, 1, 1))
+
+
+def _sweep_size(rng, hi, edges):
+    """1 .. ``hi``: half the draws within +-2 of a multiple of an edge."""
+    if rng.random() < 0.5:
+        return int(rng.integers(1, hi + 1))
+    unit = int(rng.choice([e for e in edges if e <= hi] or [1]))
+    k = int(rng.integers(1, hi // unit + 1))
+    return int(np.clip(k * unit + int(rng.integers(-2, 3)), 1, hi))
+
+
+def _quirk(rng, h, w):
+    """A (row, word) with a row below it and the word's pixels 0 to 2 in
+    the image, where the image has them (:func:`plant_quirk`)."""
+    return (int(rng.integers(0, max(h - 1, 1))),
+            int(rng.integers(0, max(-(-(w - 2) // 32), 1))))
+
+
+def plant_quirk(weak, strong, quirk_rw):
+    """Bool ``(h, w)`` masks with the strict fix's case planted at
+    ``quirk_rw`` = (r, word), c = 32 word: (r + 1, c) strong, (r, c + 1)
+    weak and not strong, and every other neighbour of (r, c + 1) not weak,
+    so that (r, c + 1) is an edge in component mode and not in strict mode
+    with the fix at ``quirk_rw``.  Unchanged where the image is smaller
+    than 2 x 3 pixels."""
+    r, c = quirk_rw[0], 32 * quirk_rw[1]
+    h, w = weak.shape
+    weak, strong = weak.clone(), strong.clone()
+    if r + 1 < h and c + 2 < w:
+        weak[max(r - 1, 0):r + 2, c:c + 3] = False
+        weak[r, c + 1] = weak[r + 1, c] = True
+        strong[r + 1, c] = True
+        strong[r, c + 1] = False
+    return weak, strong & weak
+
+
+def sweep_configs(seed=SWEEP_SEED, n=24, max_hw=(1200, 2100)):
+    """The sweep, deterministic in its arguments: ``{"frames": [...],
+    "sharded": [...]}``.
+
+    ``frames``: ``n`` configurations drawn from ``seed`` (H in 1 ..
+    ``max_hw[0]``, W in 1 .. ``max_hw[1]``, half of each near an edge of
+    ``ROW_EDGES`` / ``COL_EDGES``; sigma from ``SWEEP_SIGMAS``; thresholds
+    ``mn`` 0-80 and ``mx = mn + 1-120`` capped at 255, and every eighth
+    from the third on one of ``FORCED_THRESHOLDS``; component and strict in
+    turns; B from {1, 2, 3, 5}; a frame of noise or the headline scene; a
+    quirk ``(row, word)`` inside the masks (:func:`_quirk`); every fourth
+    also an NMS map: ``random``, ``snake`` or ``sparse``), then the JAX
+    package's fuzz:
+    ``tests/test_fuzz_bitexact.py``'s ten configurations (seed 20260817)
+    and its six degenerate shapes, each with JAX's frame.  Each is a dict
+    with ``name, h, w, sigma, mn, mx, strict, batch, image, img_seed, nm,
+    nm_seed, quirk_rw``.
+
+    ``sharded``: ``tests/test_fuzz_sharded.py``'s thirteen configurations
+    (seed 20260820) with their meshes ``(data, y, x)`` and frames (``batch``
+    = data), keys ``name, h, w, sigma, mn, mx, mesh, batch, img_seed``.
+    """
+    rng = np.random.default_rng(seed)
+    frames = []
+    for i in range(n):
+        h = _sweep_size(rng, max_hw[0], ROW_EDGES)
+        w = _sweep_size(rng, max_hw[1], COL_EDGES)
+        sigma = float(rng.choice(SWEEP_SIGMAS))
+        mn = int(rng.integers(0, 81))
+        mx = min(mn + int(rng.integers(1, 121)), 255)
+        if i % 8 == 2:
+            mn, mx = FORCED_THRESHOLDS[i // 8 % 3]
+        frames.append({
+            "name": f"sweep{i}", "h": h, "w": w, "sigma": sigma, "mn": mn,
+            "mx": mx, "strict": i % 2 == 1,
+            "batch": int(rng.choice([1, 2, 3, 5])),
+            "image": ("noise", "scene")[int(rng.integers(0, 2))],
+            "img_seed": int(rng.integers(0, 2**31)),
+            "nm": ("random", "snake", "sparse")[i // 4 % 3] if i % 4 == 3
+            else None,
+            "nm_seed": int(rng.integers(0, 2**31)),
+            "quirk_rw": _quirk(rng, h, w)})
+    fuzz = np.random.default_rng(20260817)       # test_fuzz_bitexact.py
+    jax_cfgs = []
+    for i in range(8):
+        h, w = int(fuzz.integers(16, 700)), int(fuzz.integers(16, 700))
+        sigma = float(fuzz.choice([0.5, 0.75, 1.0, 1.4, 2.0, 2.5, 3.0]))
+        mn = int(fuzz.integers(0, 80))
+        mx = mn + int(fuzz.integers(1, 120))
+        jax_cfgs.append((f"fuzz{i}", h, w, sigma, mn, mx, 1000 + i))
+    jax_cfgs += [("fuzz8", 1441, 123, 1.0, 30, 90, 1008),
+                 ("fuzz9", 1447, 257, 2.0, 0, 40, 1009)]
+    jax_cfgs += [(f"degenerate_{h}x{w}", h, w, 1.0, 50, 150, 17)
+                 for h, w in ((1, 50), (50, 1), (1, 1), (2, 2), (3, 200),
+                              (200, 3))]
+    for name, h, w, sigma, mn, mx, img_seed in jax_cfgs:
+        frames.append({
+            "name": name, "h": h, "w": w, "sigma": sigma, "mn": mn,
+            "mx": mx, "strict": False, "batch": 1, "image": "noise",
+            "img_seed": img_seed, "nm": None, "nm_seed": 0,
+            "quirk_rw": _quirk(rng, h, w)})
+    fuzz = np.random.default_rng(20260820)       # test_fuzz_sharded.py
+    sharded = []
+    for i in range(10):
+        h, w = int(fuzz.integers(16, 400)), int(fuzz.integers(16, 400))
+        sigma = float(fuzz.choice([0.5, 1.0, 1.4, 2.0, 2.5]))
+        mn = int(fuzz.integers(0, 80))
+        mx = mn + int(fuzz.integers(1, 120))
+        sharded.append((i, h, w, sigma, mn, mx, MESHES[i % len(MESHES)]))
+    sharded += [(10, 131, 251, 1.0, 30, 90, (1, 2, 4)),
+                (11, 10, 12, 2.0, 20, 60, (1, 2, 4)),
+                (12, 97, 203, 1.0, 0, 40, (2, 2, 2))]
+    return {"frames": frames, "sharded": [
+        {"name": f"sharded{i}", "h": h, "w": w, "sigma": sigma, "mn": mn,
+         "mx": mx, "mesh": mesh, "batch": mesh[0], "img_seed": 2000 + i}
+        for i, h, w, sigma, mn, mx, mesh in sharded]}
+
+
+def sweep_images(cfg):
+    """uint8 ``(batch, h, w)`` frames of a sweep configuration: uniform
+    noise from ``img_seed`` (JAX's fuzz frames), or the headline scene
+    (``bench_torch.make_image``) from ``img_seed + b``."""
+    b, h, w = cfg["batch"], cfg["h"], cfg["w"]
+    if cfg.get("image", "noise") == "noise":
+        return np.random.default_rng(cfg["img_seed"]).integers(
+            0, 256, (b, h, w), np.uint8)
+    return np.stack([make_image(h, w, seed=cfg["img_seed"] + i)
+                     for i in range(b)])
+
+
+def sweep_nm(cfg):
+    """The configuration's extra int16 NMS map ``(h, w)`` for the engines,
+    or None: a random map, the serpentine or sparse chains, cropped."""
+    kind, h, w = cfg["nm"], cfg["h"], cfg["w"]
+    if kind is None:
+        return None
+    rng = np.random.default_rng(cfg["nm_seed"])
+    if kind == "snake":
+        return snake_nm(max(h, 9), max(w, 9))[:h, :w].astype(np.int16)
+    return (random_nm if kind == "random" else sparse_nm)(rng, h, w)
 
 
 def run_cli(argv, stderr=None):
@@ -514,7 +679,10 @@ def multi_device_phase(dev, time_ms, device_ms, hw=SIZES["1080p"],
     from canny_edge_tpu_torch.ops.gaussian import gaussian_kernel
     from canny_edge_tpu_torch.parallel import ShardedCanny, make_mesh
     from canny_edge_tpu_torch.parallel import multihost
-    from canny_edge_tpu_torch.utils.roofline import kernel_bounds
+    from canny_edge_tpu_torch.utils.opcount import audit_compiled
+    from canny_edge_tpu_torch.utils.roofline import (HBM_BYTES_PER_S,
+                                                     SEPARATE_OPS_PER_S,
+                                                     kernel_bounds)
 
     def sync():
         if dev.type == "cuda":
@@ -768,6 +936,21 @@ def multi_device_phase(dev, time_ms, device_ms, hw=SIZES["1080p"],
                    ("k2_quirk", "hysteresis_packed_quirk")):
         kt[f"{k}_bound_ms"] = kb[key]["bound_ms"]
         kt[f"{k}_bound_by"] = kb[key]["bound_by"]
+    # the audited floor, as PERF.md's rows 1 and 3 take it: the larger of
+    # the bound's bytes at the HBM rate and the plain version's audited alu
+    # operations (utils/opcount.py; the flood's rounds those of this data)
+    # at the rate of separate operations
+    for k, fn, px, nbytes in (
+            ("k1_block", lambda: Wn.frontend_block(
+                win, 0, wl, H, W, kern, (MN, MX)), hl * wl,
+             win.numel() + 2 * hl * (wl // 32) * 4),
+            ("k2_quirk", lambda: P.hysteresis_packed_masks(
+                weak, strong, eh, ew, strict=True, quirk_rw=(1, 1)),
+             eh * ew, 3 * weak.numel() * 4)):
+        alu = audit_compiled(fn, pixels=px)["buckets"].get("alu", 0.0)
+        kt[f"{k}_audited_alu_per_px"] = alu
+        kt[f"{k}_audited_floor_ms"] = max(
+            nbytes / HBM_BYTES_PER_S, alu * px / SEPARATE_OPS_PER_S) * 1e3
     rep["kernel_times"] = kt
     rep["max_abs_err"] = {"frontend_block": block_err, "k2_quirk": k2_err}
 
@@ -1121,6 +1304,369 @@ def batch_phase(dev, time_ms, host_ms, device_ms, hw=SIZES["1080p"],
     rep["max_abs_err"] = err
     rep["s"] = time.perf_counter() - t0
     return rep, entries
+
+
+ENGINE_THRESHOLDS = {"random": (10, 95), "snake": (10, 100),
+                     "sparse": (10, 100)}
+
+
+def _oracle_init():
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def _oracle(kind, *args):
+    """One CPU reference of phase 14, computed in a worker process:
+
+    * ``golden``: (frames, sigma, mn, mx, strict) -> the port's NumPy oracle
+      on each frame (its BFS in strict mode);
+    * ``cpu``: (frames, sigma, mn, mx, strict) -> ``CannyTorch`` on the CPU:
+      the batch's int16 edges and its packed edges;
+    * ``k3``: (map, lo, hi) -> the plain K3 (``ops/dilate.py``): edges and
+      sweeps;
+    * ``k4``: (map, lo, hi, band_h) -> the plain K4 (``ops/banded.py``) at
+      ``band_h``: edges and sweeps;
+    * ``mirror``: (weak, strong, h, w, strict, quirk_rw) -> K2's tile mirror
+      (``ops/packed_tiles.py``): packed edges and steps."""
+    import torch
+
+    from canny_edge_tpu_torch import CannyTorch, golden
+    from canny_edge_tpu_torch.ops import banded as Bd
+    from canny_edge_tpu_torch.ops import dilate as Dl
+    from canny_edge_tpu_torch.ops import packed_tiles as Tl
+
+    if kind == "golden":
+        frames, sigma, mn, mx, strict = args
+        if not strict:
+            return np.stack([golden.canny(f, sigma, mn, mx) for f in frames])
+        return np.stack([golden.hysteresis_strict(golden.nonmax_suppression(
+            *golden.sobel(golden.gaussian_blur(f, sigma))), mn, mx)
+            for f in frames])
+    if kind == "cpu":
+        frames, sigma, mn, mx, strict = args
+        model = CannyTorch(sigma, hysteresis_mode=("strict-reference"
+                                                   if strict else "component"),
+                           device="cpu")
+        return (model.batch(frames, mn, mx).numpy(),
+                model.batch_packed(frames, mn, mx).view(torch.int32).numpy())
+    if kind == "k3":
+        nm, lo, hi = args
+        edges, sweeps = Dl.hysteresis_dilate(torch.from_numpy(nm), lo, hi,
+                                             return_sweeps=True)
+        return edges.numpy(), sweeps
+    if kind == "k4":
+        nm, lo, hi, band_h = args
+        edges, sweeps = Bd.hysteresis_banded(torch.from_numpy(nm), lo, hi,
+                                             band_h=band_h, return_sweeps=True)
+        return edges.numpy(), sweeps
+    weak, strong, h, w, strict, quirk_rw = args
+    edges, steps, _ = Tl.hysteresis_packed_tiles(
+        torch.from_numpy(weak).view(torch.uint32),
+        torch.from_numpy(strong).view(torch.uint32), h, w, strict=strict,
+        quirk_rw=quirk_rw)
+    return edges.view(torch.int32).numpy(), steps
+
+
+def first_diff(got, want):
+    """The first (index) at which two arrays differ, their shapes where
+    those differ, or None."""
+    got, want = (np.asarray(x.detach().cpu() if hasattr(x, "detach") else x)
+                 for x in (got, want))
+    if got.shape != want.shape:
+        return f"shape {got.shape} against {want.shape}"
+    if got.ndim == 0:
+        return None if got == want else f"{got} against {want}"
+    at = np.argwhere(got != want)
+    return tuple(int(i) for i in at[0]) if len(at) else None
+
+
+def sweep_phase(dev, cfgs=None, workers=6, chunked=(65537, 1, 3)):
+    """Phase 14: the seeded sweep (:func:`sweep_configs`) on the card.
+
+    For every frame configuration, each comparison bit-equal:
+    * K1 in NMS and threshold mode on every frame and, where B > 1, on the
+      batch, against ``ops.window.frontend_nm`` on the card;
+    * K2 on every NMS map (K1's and the extra one) in the configuration's
+      mode: masks -> packed, masks -> int16, NMS map -> int16 and -> packed
+      against the plain flood (``ops/packed.py``) on the card and the tile
+      mirror (its steps at most the mirror's); strict with the quirk at the
+      configuration's (row, word), where :func:`plant_quirk` plants the
+      case the fix decides, against both; the batch against the stacked
+      plain floods;
+    * K3 and K4 on every map and on the batch, the batch against its frames
+      (its sweeps the most of a frame), each frame's edges and sweeps
+      against ``ops/dilate.py`` and ``ops/banded.py`` (K4 at the band that
+      ran); the serpentine, whose plain dilation takes minutes, holds K3
+      against the plain packed flood;
+    * ``CannyTorch`` with each backend on the batch against its frames one
+      by one and against ``CannyTorch`` on the CPU, ``canny_fn_packed``
+      against the CPU's packed edges, and the edges against ``golden``.
+    Every sharded configuration runs ``ShardedCanny`` on an in-process mesh
+    of its blocks on the card, component and strict, against the fused
+    backend on the card and ``golden``; the static engine (K1 block mode,
+    K2's quirk) and the generic engine must both run.  Then K1 on a batch of
+    ``chunked`` ``(frames, h, w)`` (a launch a chunk of at most 65535; None:
+    not run) against the plain version of its 251 distinct frames.
+
+    The CPU references (``golden``, ``CannyTorch`` on the CPU, the plain K3
+    and K4, K2's tile mirror) run in ``workers`` spawned processes while
+    the card works.  Each mismatch is printed with its configuration and
+    first differing pixel, and the phase then fails.  Returns the report."""
+    import multiprocessing
+
+    import torch
+
+    from canny_edge_tpu_torch import CannyTorch
+    from canny_edge_tpu_torch.kernels import frontend as kfe
+    from canny_edge_tpu_torch.kernels import hysteresis as k3
+    from canny_edge_tpu_torch.kernels import hysteresis_packed as khp
+    from canny_edge_tpu_torch.kernels import hysteresis_v2 as k4
+    from canny_edge_tpu_torch.models import canny_fn_packed
+    from canny_edge_tpu_torch.ops import packed as P
+    from canny_edge_tpu_torch.ops import window as Wn
+    from canny_edge_tpu_torch.ops.gaussian import gaussian_kernel
+    from canny_edge_tpu_torch.parallel import ShardedCanny, make_mesh
+
+    t0 = time.perf_counter()
+    cfgs = cfgs or sweep_configs()
+    mods = {"frontend": kfe, "hysteresis_packed": khp,
+            "hysteresis_dilate": k3, "hysteresis_banded": k4}
+    for m in mods.values():
+        m.launches = m.batch_launches = 0
+    kfe.block_launches = khp.quirk_launches = 0
+    cases = {}
+    bands = {}                    # K4's band that ran, by configuration
+    mismatches = []
+    pending = []                  # (tag, cfg, future, compare(result))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def host(x):
+        x = x.detach().cpu()
+        return (x.view(torch.int32) if x.dtype == torch.uint32 else x).numpy()
+
+    def same(tag, cfg, got, want):
+        """Count the case; record a mismatch with its first pixel."""
+        cases[tag] = cases.get(tag, 0) + 1
+        at = first_diff(got, want)
+        if at is not None:
+            mismatches.append({"case": tag, "config": cfg, "first": at})
+            log(f"sweep MISMATCH {tag}: first differing pixel {at}, "
+                f"configuration {cfg}")
+
+    def later(tag, cfg, fut, compare):
+        pending.append((tag, cfg, fut, compare))
+
+    def on_card(x):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(dev)
+
+    def check_k2(cfg, what, m, lo, hi, strict):
+        """K2's modes on one map against the plain flood and its mirror."""
+        h, w = m.shape
+        weak, strong = P.pack_mask(m >= lo), P.pack_mask(m >= hi)
+        ref = P.hysteresis_packed_masks(weak, strong, h, w, strict=strict)[0]
+        ref16 = P.unpack_edges(ref, w)
+        out, steps = khp.hysteresis_packed(weak, strong, h, w, strict=strict,
+                                           return_steps=True)
+        mode = "strict" if strict else "component"
+        same(f"k2_masks_packed_{mode}", cfg, host(out), host(ref))
+        same(f"k2_masks_int16_{mode}", cfg, host(khp.hysteresis_packed(
+            weak, strong, h, w, strict=strict, edges_int16=True)), host(ref16))
+        same(f"k2_nm_int16_{mode}", cfg, host(khp.hysteresis_packed_nm(
+            m, lo, hi, strict=strict)), host(ref16))
+        same(f"k2_nm_packed_{mode}", cfg, host(khp.hysteresis_packed_nm(
+            m, lo, hi, strict=strict, packed_out=True)), host(ref))
+        steps, out = int(steps), host(out)
+        later(f"k2_mirror_{mode}", cfg, pool.submit(
+            _oracle, "mirror", host(weak), host(strong), h, w, strict,
+            (0, 0)), lambda r, out=out, steps=steps, what=what: (
+                r[0] if steps <= r[1] else
+                f"{what}: K2 took {steps} steps, its mirror {r[1]}", out))
+        q = tuple(cfg["quirk_rw"])
+        if h >= 2 and w >= 3:       # the fix's case planted at the quirk
+            weak, strong = (P.pack_mask(x) for x in plant_quirk(
+                m >= lo, m >= hi, q))
+            refq = P.hysteresis_packed_masks(weak, strong, h, w, strict=True,
+                                             quirk_rw=q)[0]
+            comp = P.hysteresis_packed_masks(weak, strong, h, w)[0]
+            at = (q[0], 32 * q[1] + 1)
+            check(not P.unpack_mask(refq, w)[at]
+                  and P.unpack_mask(comp, w)[at],
+                  f"the planted quirk case decides nothing: {cfg}")
+            outq = host(khp.hysteresis_packed(weak, strong, h, w,
+                                              strict=True, quirk_rw=q))
+            same("k2_quirk", cfg, outq, host(refq))
+            later("k2_quirk_mirror", cfg, pool.submit(
+                _oracle, "mirror", host(weak), host(strong), h, w, True, q),
+                lambda r, outq=outq: (r[0], outq))
+        return ref
+
+    def check_engines(cfg, what, maps, lo, hi, dilate=True):
+        """K3 and K4 on a batch of maps (one launch) against its frames,
+        each frame against the plain engines at the band K4 ran."""
+        flood = P.hysteresis_packed(maps, lo, hi)
+        for name, fn, stats in (
+                ("k3", k3.hysteresis_dilate, k3.dilate_stats),
+                ("k4", k4.hysteresis_banded, k4.banded_stats)):
+            out, sweeps = fn(maps, lo, hi, return_sweeps=True)
+            singles = [stats(f, lo, hi) for f in maps]
+            same(f"{name}_batch" if len(maps) > 1 else name, cfg, host(out),
+                 host(torch.stack([o for o, _ in singles])))
+            most = max(s["sweeps"] for _, s in singles)
+            if sweeps != most:
+                same(f"{name}_batch_sweeps", cfg, sweeps, most)
+            same(f"{name}_flood", cfg, host(out), host(flood))
+            if name == "k3" and not dilate:
+                continue          # the serpentine: held against the flood
+            if name == "k4":
+                bands[cfg["name"]] = singles[0][1]["band_h"]
+            for i, (o, st) in enumerate(singles):
+                args = (host(maps[i]), lo, hi) + (
+                    (st["band_h"],) if name == "k4" else ())
+                later(f"{name}_plain", cfg, pool.submit(_oracle, name, *args),
+                      lambda r, o=host(o), n=st["sweeps"], i=i: (
+                          r[0] if n == r[1] else
+                          f"{what}[{i}]: {n} sweeps, plain {r[1]}", o))
+
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=ctx, initializer=_oracle_init) as pool:
+        for cfg in cfgs["frames"]:
+            imgs_np = sweep_images(cfg)
+            b, h, w = imgs_np.shape
+            sigma, mn, mx, strict = (cfg["sigma"], cfg["mn"], cfg["mx"],
+                                     cfg["strict"])
+            mode = "strict-reference" if strict else "component"
+            refs = {k: pool.submit(_oracle, k, imgs_np, sigma, mn, mx,
+                                   strict) for k in ("golden", "cpu")}
+            kern = gaussian_kernel(sigma)
+            taps = torch.from_numpy(kern).to(dev)
+            imgs = on_card(imgs_np)
+            # ---- K1 ----
+            nm_b = kfe.frontend(imgs, taps)
+            masks_b = kfe.frontend(imgs, taps, (mn, mx))
+            for i in range(b):
+                ref = Wn.frontend_nm(imgs[i], kern)
+                same("k1_nm", cfg, host(kfe.frontend(imgs[i], taps)),
+                     host(ref.to(torch.int16)))
+                for got, want in zip(kfe.frontend(imgs[i], taps, (mn, mx)),
+                                     (ref >= mn, ref >= mx)):
+                    same("k1_threshold", cfg, host(got),
+                         host(P.pack_mask(want)))
+                if b > 1:
+                    same("k1_batch_nm", cfg, host(nm_b[i]),
+                         host(ref.to(torch.int16)))
+                    for got, want in zip(masks_b, (ref >= mn, ref >= mx)):
+                        same("k1_batch_threshold", cfg, host(got[i]),
+                             host(P.pack_mask(want)))
+            # ---- K2: every frame's map, the extra map, the batch ----
+            floods = [check_k2(cfg, f"frame {i}", nm_b[i], mn, mx, strict)
+                      for i in range(b)]
+            if b > 1:
+                mode_k2 = "strict" if strict else "component"
+                same(f"k2_batch_{mode_k2}", cfg, host(khp.hysteresis_packed(
+                    *masks_b, h, w, strict=strict)), host(torch.stack(floods)))
+                same(f"k2_batch_nm_int16_{mode_k2}", cfg,
+                     host(khp.hysteresis_packed_nm(nm_b, mn, mx,
+                                                   strict=strict)),
+                     host(P.unpack_edges(torch.stack(floods), w)))
+            extra = sweep_nm(cfg)
+            if extra is not None:
+                lo, hi = ENGINE_THRESHOLDS[cfg["nm"]]
+                check_k2(cfg, cfg["nm"], on_card(extra), lo, hi, strict)
+            # ---- K3 and K4 ----
+            check_engines(cfg, "K1's maps", nm_b, mn, mx)
+            if extra is not None:
+                check_engines(cfg, cfg["nm"], on_card(extra)[None], lo, hi,
+                              dilate=cfg["nm"] != "snake")
+            # ---- the entry points, each backend ----
+            outs = {}
+            for backend in ("fused", "pallas", "xla"):
+                model = CannyTorch(sigma, hysteresis_mode=mode,
+                                   backend=backend, device=dev)
+                outs[backend] = host(model.batch(imgs, mn, mx))
+                same(f"batch_vs_frames_{backend}", cfg, outs[backend],
+                     np.stack([host(model(imgs[i], mn, mx))
+                               for i in range(b)]))
+            packed = host(canny_fn_packed(imgs, mn, mx, kernel_vals=taps,
+                                          hysteresis_mode=mode))
+            sync()
+            for backend, out in outs.items():
+                later(f"cpu_{backend}", cfg, refs["cpu"],
+                      lambda r, out=out: (r[0], out))
+            later("cpu_canny_fn_packed", cfg, refs["cpu"],
+                  lambda r, packed=packed: (r[1], packed))
+            later("golden", cfg, refs["golden"],
+                  lambda r, out=outs["fused"]: (r, out))
+        # ---- the sharded configurations ----
+        engines, meshes = set(), set()
+        for cfg in cfgs["sharded"]:
+            imgs_np = np.random.default_rng(cfg["img_seed"]).integers(
+                0, 256, (cfg["batch"], cfg["h"], cfg["w"]), np.uint8)
+            d, y, x = cfg["mesh"]
+            mesh = make_mesh([dev] * (d * y * x), data=d, y=y, x=x)
+            meshes.add(f"{d}x{y}x{x}")
+            for strict in (False, True):
+                mode = "strict-reference" if strict else "component"
+                model = ShardedCanny(mesh, cfg["sigma"], (cfg["h"], cfg["w"]),
+                                     hysteresis_mode=mode)
+                engines.add(model.engine)
+                out = host(model(imgs_np, cfg["mn"], cfg["mx"]))
+                tag = f"sharded_{model.engine}_{mode.split('-')[0]}"
+                same(tag, cfg, out, host(CannyTorch(
+                    cfg["sigma"], hysteresis_mode=mode, device=dev).batch(
+                        imgs_np, cfg["mn"], cfg["mx"])))
+                later(f"{tag}_golden", cfg, pool.submit(
+                    _oracle, "golden", imgs_np, cfg["sigma"], cfg["mn"],
+                    cfg["mx"], strict), lambda r, out=out: (r, out))
+        sync()
+        sharded_launches = {"frontend_block": kfe.block_launches,
+                            "hysteresis_packed_quirk": khp.quirk_launches}
+        # ---- K1 on more frames than one launch takes ----
+        if chunked:
+            n, h, w = chunked
+            distinct = np.random.default_rng(SWEEP_SEED).integers(
+                0, 256, (251, h, w), np.uint8)
+            pick = np.arange(n) % len(distinct)   # 251 is prime to 65535
+            kern = gaussian_kernel(SIGMA)
+            taps = torch.from_numpy(kern).to(dev)
+            before = kfe.launches
+            got = kfe.frontend(on_card(distinct[pick]), taps)
+            chunk_launches = kfe.launches - before
+            want = torch.stack([Wn.frontend_nm(on_card(f), kern)
+                                for f in distinct]).to(torch.int16)
+            same("k1_chunked", {"batch": n, "h": h, "w": w}, host(got),
+                 host(want)[pick])
+            check(chunk_launches == -(-n // kfe.MAX_BATCH),
+                  f"K1 on {n} frames launched {chunk_launches} times")
+        card_s = time.perf_counter() - t0
+        for tag, cfg, fut, compare in pending:
+            want, got = compare(fut.result())
+            if isinstance(want, str):        # a count that did not hold
+                mismatches.append({"case": tag, "config": cfg, "first": want})
+                log(f"sweep MISMATCH {tag}: {want}, configuration {cfg}")
+                continue
+            same(tag, cfg, got, want)
+    launches = {k: m.launches for k, m in mods.items()}
+    launches.update({f"{k}_batch": m.batch_launches for k, m in mods.items()},
+                    **sharded_launches)
+    rep = {"cases": dict(sorted(cases.items())), "launches": launches,
+           "engines": sorted(engines), "meshes": sorted(meshes),
+           "k4_band_h": bands, "mismatches": len(mismatches),
+           "mismatch_list": mismatches[:50],
+           "configurations": {k: len(v) for k, v in cfgs.items()},
+           "card_s": card_s, "s": time.perf_counter() - t0}
+    check(not mismatches, f"the sweep found {len(mismatches)} mismatches: "
+          f"{mismatches[:5]}")
+    check(engines == ({"static", "generic"} if cfgs["sharded"] else set()),
+          f"sharded engines {engines}")
+    check(all(v for k, v in launches.items() if cfgs["sharded"]
+              or k in mods), f"a kernel of the sweep never launched: "
+          f"{launches}")
+    return rep
 
 
 def check_bounds(kernels):
@@ -1877,7 +2423,9 @@ def main():
          "bound_ms": kt["k1_block_bound_ms"],
          "bound_by": kt["k1_block_bound_by"], "library_ms": None,
          "match": True, "shape": "a 1080x960 block of 2160x3840, halo 7",
-         "device_ms": kt["k1_block_device_ms"]},
+         "device_ms": kt["k1_block_device_ms"],
+         "audited_alu_per_px": kt["k1_block_audited_alu_per_px"],
+         "audited_floor_ms": kt["k1_block_audited_floor_ms"]},
         {"name": "hysteresis_packed_quirk", "route": "cuda",
          "source": "canny_edge_tpu_torch/kernels/csrc/hysteresis_packed.cu",
          "replaces": "canny_edge_tpu/kernels/hysteresis_packed.py:180",
@@ -1888,7 +2436,9 @@ def main():
          "bound_by": kt["k2_quirk_bound_by"], "library_ms": None,
          "match": True, "shape": "1082x1024 (a 4K block with its halo), "
                                  "strict, quirk (1, 1)",
-         "device_ms": kt["k2_quirk_device_ms"], "steps": kt["k2_quirk_steps"]},
+         "device_ms": kt["k2_quirk_device_ms"], "steps": kt["k2_quirk_steps"],
+         "audited_alu_per_px": kt["k2_quirk_audited_alu_per_px"],
+         "audited_floor_ms": kt["k2_quirk_audited_floor_ms"]},
     ]
     report["kernels"] = kernels
 
@@ -1909,6 +2459,15 @@ def main():
                          if k.endswith("_ms") or k == "frames"}
                   for size, t in bt.items()},
         "s": report["batch_path"]["s"]}), flush=True)
+    # ---- 14. the seeded sweep ----
+    report["sweep"] = sweep_phase(dev)
+    sw = report["sweep"]
+    print("sweep: " + json.dumps({
+        "card": card, "configurations": sw["configurations"],
+        "cases": sw["cases"], "launches": sw["launches"],
+        "engines": sw["engines"], "meshes": sw["meshes"],
+        "mismatches": sw["mismatches"],
+        "s": sw["s"]}), flush=True)
     report["total_s"] = time.perf_counter() - t_run
     log("report: " + json.dumps(report))
     out_dir = os.path.join(ROOT, "chiprun_out")     # listed in .gitignore

@@ -110,7 +110,7 @@ COUNTERPARTS = {
     "ops": {"sobel": "ops.stages.sobel", "xy_gradient": "ops.window.sobel",
             "isqrt_int32": "ops.window.isqrt",
             "quantize_angle_int": "ops.stages.quantize_angle"},
-    "kernels": {"frontend_nm": "kernels.frontend.frontend",
+    "kernels": {"frontend_nm": "kernels.frontend.frontend_nm",
                 "hysteresis_pallas": "kernels.hysteresis.hysteresis_dilate",
                 "hysteresis_packed_pallas":
                     "kernels.hysteresis_packed.hysteresis_packed_nm"},
