@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..ops.packed import cdiv
+from ..ops.thresholds import threshold_bound
 from ..ops.window import frontend_block as frontend_block_plain
 from ..ops.window import frontend_nm as frontend_plain
 from . import _build
@@ -49,6 +50,14 @@ def _check_taps(taps: torch.Tensor) -> int:
     return window
 
 
+def _bounds(thresholds):
+    """The thresholds as the integers that the kernel and the plain
+    version both compare with (:func:`..ops.thresholds.threshold_bound`)."""
+    if thresholds is None:
+        return None
+    return tuple(threshold_bound(t) for t in thresholds)
+
+
 def _launch(entry: str, args, src: torch.Tensor, taps: torch.Tensor,
             oh: int, ow: int, thresholds, lead=()):
     """Check the device and the window, allocate the outputs, launch."""
@@ -69,8 +78,8 @@ def _launch(entry: str, args, src: torch.Tensor, taps: torch.Tensor,
                            device=dev)
         strong = torch.empty_like(weak)
         # the kernel compares 4 * magnitude with 4 * threshold in an int;
-        # magnitudes lie in [0, 2**13), so a clamped threshold decides alike
-        mn, mx = (min(max(int(t), -1), 1 << 13) for t in thresholds)
+        # magnitudes lie in [0, 2**13), so a clamped bound decides alike
+        mn, mx = (min(max(t, -1), 1 << 13) for t in thresholds)
         out = (1, mn, mx, None, weak.data_ptr(), strong.data_ptr())
     with _build.device_guard(dev):
         err = getattr(_build.load("frontend"), entry)(
@@ -86,9 +95,11 @@ def frontend(img: torch.Tensor, taps: torch.Tensor, thresholds=None):
     ``img``: uint8 ``(H, W)`` or a batch ``(B, H, W)`` whose results stack
     the frames' (one launch on the card for up to ``MAX_BATCH`` frames, a
     launch a chunk of that many above it).
-    ``thresholds``: optional ``(min_val, max_val)`` integers.
+    ``thresholds``: optional ``(min_val, max_val)``, compared as JAX
+    compares an integer map with them (:func:`_bounds`).
     """
     global launches, batch_launches
+    thresholds = _bounds(thresholds)
     if img.dtype != torch.uint8 or img.dim() not in (2, 3) \
             or img.numel() == 0:
         raise ValueError(f"expected a non-empty uint8 (H, W) image or "
@@ -153,6 +164,7 @@ def frontend_block(window: torch.Tensor, row0: int, col0: int, H: int,
     masks ``(hl, ceil(wl/32))``; pixels past the image are 0 and clear.
     """
     global launches, block_launches
+    thresholds = _bounds(thresholds)
     r = _check_taps(taps) // 2 + 2
     hl, wl = window.shape[-2] - 2 * r, window.shape[-1] - 2 * r
     if window.dtype != torch.uint8 or window.dim() != 2 or hl < 1 or wl < 1:

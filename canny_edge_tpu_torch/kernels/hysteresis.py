@@ -18,6 +18,7 @@ import torch
 
 from ..ops.dilate import DEFAULT_TILE, tile_shape
 from ..ops.dilate import hysteresis_dilate as dilate_plain
+from ..ops.thresholds import threshold_bound
 from . import _build
 from ._scratch import Scratch, buffer, next_token
 
@@ -56,7 +57,8 @@ def plain_frames(plain, nm, *args, **kw):
 def launch_engine(name, scratch, nm, lo, hi, key, prepare):
     """One call of the C entry ``canny_<name>(nm, bytes, lo, hi, weak, e0,
     e1, out, B, H, W, *config, ctl, token, stream)`` of K3 or K4 on an NMS
-    map or batch, on ``nm``'s device and PyTorch's current stream.
+    map or batch, on ``nm``'s device and PyTorch's current stream; ``lo``
+    and ``hi`` are the integers of :func:`..ops.thresholds.threshold_bound`.
 
     The packed masks and the control words come from ``scratch``, per
     device, stream, ``(B, H, W)`` and ``key``; ``prepare(lib)`` runs once
@@ -85,7 +87,7 @@ def launch_engine(name, scratch, nm, lo, hi, key, prepare):
                                   for m in ("weak", "e0", "e1"))
             entry["ctl_ptr"] = entry["ctl"].data_ptr()
         out = torch.empty(nm.shape, dtype=torch.int16, device=dev)
-        err = entry["fn"](nm.data_ptr(), nm.element_size(), int(lo), int(hi),
+        err = entry["fn"](nm.data_ptr(), nm.element_size(), lo, hi,
                           *entry["ptrs"], out.data_ptr(), b, h, w,
                           *entry["config"], entry["ctl_ptr"], next_token(),
                           stream)
@@ -99,6 +101,9 @@ def _run(nm, min_val, max_val, tile):
     device view that nothing has read yet."""
     global launches, batch_launches
     b, h, w = check_nm(nm)
+    # the kernel and the plain version compare the same integers
+    min_val, max_val = (threshold_bound(t, nm.dtype)
+                        for t in (min_val, max_val))
     th, tw = tile_shape(h, w, tile)
     if nm.device.type == "cpu":
         out, sweeps = plain_frames(dilate_plain, nm, min_val, max_val,
@@ -115,8 +120,7 @@ def _run(nm, min_val, max_val, tile):
 
     # seeds nm >= max(min_val, max_val): see ops/dilate.py
     out, entry = launch_engine("dilate", _scratch, nm, min_val,
-                               max(int(min_val), int(max_val)), (th, tw),
-                               prepare)
+                               max(min_val, max_val), (th, tw), prepare)
     launches += 1
     batch_launches += b > 1
     return out, entry["ints"]

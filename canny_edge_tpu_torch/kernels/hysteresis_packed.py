@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.packed import cdiv, hysteresis_packed_masks, pack_mask, unpack_edges
+from ..ops.thresholds import at_least, threshold_bound
 from . import _build
 from ._scratch import Scratch, buffer, next_token
 
@@ -63,7 +64,7 @@ def _launch(dev, b, h, w, *, weak=None, strong=None, nm=None, lo=0, hi=0,
         err = lib.canny_hysteresis_packed(
             weak.data_ptr(), strong.data_ptr(),
             None if nm is None else nm.data_ptr(),
-            0 if nm is None else nm.element_size(), int(lo), int(hi),
+            0 if nm is None else nm.element_size(), lo, hi,
             edges.data_ptr(), out.data_ptr() if int16_out else None, b, h, w,
             int(bool(strict)), *quirk_rw, entry["ctl"].data_ptr(),
             next_token(), stream)
@@ -172,10 +173,11 @@ def hysteresis_packed_nm(nm: torch.Tensor, min_val: int, max_val: int, *,
 
     The counterpart of ``canny_edge_tpu/kernels/hysteresis_packed.py:
     hysteresis_packed_pallas``.  ``weak = nm >= min_val`` and ``strong = nm
-    >= max_val``, compared signed.  On the card the compares, the packing,
-    the flood and the unpacking are one kernel call, for a batch too (each
-    frame converging on its own); on the CPU they are the plain versions, a
-    frame at a time.  ``packed_out``: return the packed uint32 edge mask
+    >= max_val``, compared signed as JAX compares them (a float threshold
+    in float32: :func:`..ops.thresholds.threshold_bound`).  On the card the
+    compares, the packing, the flood and the unpacking are one kernel call,
+    for a batch too (each frame converging on its own); on the CPU they are
+    the plain versions, a frame at a time.  ``packed_out``: return the packed uint32 edge mask
     instead.  ``return_steps`` (one frame only): as in
     :func:`hysteresis_packed`.  ``inner_dilate`` is accepted and unused, as
     by :func:`hysteresis_packed_pallas_masks`.
@@ -189,14 +191,17 @@ def hysteresis_packed_nm(nm: torch.Tensor, min_val: int, max_val: int, *,
         raise ValueError("return_steps takes one frame")
     b, (h, w) = _frames(nm, "nm"), nm.shape[-2:]
     strict = strict and h >= 2 and w >= 2
+    # the kernel and the plain version compare the same integers
+    min_val, max_val = (threshold_bound(t, nm.dtype)
+                        for t in (min_val, max_val))
     if nm.device.type == "cpu":
         if nm.dim() == 3:
             return torch.stack([
                 hysteresis_packed_nm(f, min_val, max_val, strict=strict,
                                      packed_out=packed_out) for f in nm])
         out, steps = hysteresis_packed_masks(
-            pack_mask(nm >= min_val), pack_mask(nm >= max_val), h, w,
-            strict=strict)
+            pack_mask(at_least(nm, min_val)),
+            pack_mask(at_least(nm, max_val)), h, w, strict=strict)
         if not packed_out:
             out = unpack_edges(out, w)
     elif nm.device.type == "cuda":

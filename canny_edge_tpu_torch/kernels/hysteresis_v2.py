@@ -17,6 +17,7 @@ import torch
 from ..ops.banded import band_params
 from ..ops.banded import hysteresis_banded as banded_plain
 from ..ops.packed import cdiv
+from ..ops.thresholds import threshold_bound
 from ._scratch import Scratch
 from .hysteresis import check_nm, launch_engine, plain_frames
 
@@ -35,6 +36,9 @@ def _run(nm, min_val, max_val, band_h, group):
     yet; ``band_h`` is the band that ran."""
     global launches, batch_launches
     b, h, w = check_nm(nm)
+    # the kernel and the plain version compare the same integers
+    min_val, max_val = (threshold_bound(t, nm.dtype)
+                        for t in (min_val, max_val))
     asked = band_h is not None
     band_h, _ = band_params(h, w, band_h, group)
     if nm.device.type == "cpu":

@@ -29,6 +29,7 @@ from ..kernels.hysteresis_packed import hysteresis_packed
 from ..ops import stages
 from ..ops.gaussian import gaussian_kernel
 from ..ops.packed import hysteresis_packed as hysteresis_packed_plain
+from ..ops.thresholds import threshold_int32
 from ..ops.window import frontend_nm
 
 MODES = ("component", "strict-reference")
@@ -49,6 +50,12 @@ def uint8_input(img, device) -> torch.Tensor:
     if isinstance(img, np.ndarray):
         img = torch.from_numpy(np.ascontiguousarray(img))
     return img.to(device)
+
+
+def _truncated(min_val, max_val) -> tuple[int, int]:
+    """The thresholds as the model classes of JAX pass them on:
+    ``jnp.int32`` of each, a float truncated toward zero."""
+    return threshold_int32(min_val), threshold_int32(max_val)
 
 
 def _strict(hysteresis_mode: str) -> bool:
@@ -192,7 +199,10 @@ class CannyTorch:
     all three give the same edges.  ``hysteresis_steps``: dilations between
     two convergence tests of ``with_intermediates``, whose count it also
     sets; the backends never read it.  Inputs may be NumPy arrays or
-    tensors; outputs are tensors on ``device``.
+    tensors; outputs are tensors on ``device``.  Every method validates the
+    thresholds, then truncates them to int32 as ``CannyTPU`` does (30.5
+    means 30), where the functional entry points compare them as JAX
+    compares (30.5 means 31).
     """
 
     def __init__(self, sigma: float = 1.0, hysteresis_mode: str = "component",
@@ -239,28 +249,31 @@ class CannyTorch:
     def __call__(self, img, min_val: int, max_val: int):
         """(H, W) -> (H, W) int16 {0, 255} (:func:`canny_fn`)."""
         self._validate(img, min_val, max_val)
-        return canny_fn(self._input(img), min_val, max_val,
+        return canny_fn(self._input(img), *_truncated(min_val, max_val),
                         kernel_vals=self.taps, backend=self.backend,
                         hysteresis_mode=self.hysteresis_mode)
 
     def packed(self, img, min_val: int, max_val: int):
         """Edge bitmask (H, ceil(W/32)) uint32 (:func:`canny_fn_packed`)."""
         self._validate(img, min_val, max_val)
-        return canny_fn_packed(self._input(img), min_val, max_val,
+        return canny_fn_packed(self._input(img),
+                               *_truncated(min_val, max_val),
                                kernel_vals=self.taps,
                                hysteresis_mode=self.hysteresis_mode)
 
     def batch(self, imgs, min_val: int, max_val: int):
         """(B, H, W) -> (B, H, W) int16 {0, 255} (:func:`canny_fn_batched`)."""
         return canny_fn_batched(self._batch_input(imgs, min_val, max_val),
-                                min_val, max_val, kernel_vals=self.taps,
+                                *_truncated(min_val, max_val),
+                                kernel_vals=self.taps,
                                 backend=self.backend,
                                 hysteresis_mode=self.hysteresis_mode)
 
     def batch_packed(self, imgs, min_val: int, max_val: int):
         """(B, H, W) -> (B, H, ceil(W/32)) uint32 edge bitmasks."""
         return canny_fn_packed(self._batch_input(imgs, min_val, max_val),
-                               min_val, max_val, kernel_vals=self.taps,
+                               *_truncated(min_val, max_val),
+                               kernel_vals=self.taps,
                                hysteresis_mode=self.hysteresis_mode)
 
     def with_intermediates(self, img, min_val: int, max_val: int):
@@ -268,7 +281,8 @@ class CannyTorch:
         :func:`canny_with_intermediates`."""
         self._validate(img, min_val, max_val)
         return canny_with_intermediates(
-            self._input(img), min_val, max_val, kernel_vals=self.kernel,
+            self._input(img), *_truncated(min_val, max_val),
+            kernel_vals=self.kernel,
             hysteresis_steps=self.hysteresis_steps)
 
     def _batch_input(self, imgs, min_val, max_val):

@@ -14,6 +14,7 @@ import torch
 from ..kernels.fused import resolve_device, to_device
 from ..ops import stages
 from ..ops.gaussian import gaussian_kernel
+from ..ops.thresholds import at_least, threshold_int32
 from .canny import uint8_input
 
 # SobelTPU's bound; the largest magnitude is floor(sqrt(2) * 1020) = 1442
@@ -35,7 +36,7 @@ def sobel_fn(img, threshold: int, *, kernel_vals,
     blurred image is at least ``threshold``; placement as in
     :func:`sobel_magnitude_fn`."""
     mag = sobel_magnitude_fn(img, kernel_vals=kernel_vals, device=device)
-    return (mag >= threshold).to(torch.int16) * 255
+    return at_least(mag, threshold).to(torch.int16) * 255
 
 
 class SobelTorch:
@@ -49,6 +50,8 @@ class SobelTorch:
 
     Inputs may be NumPy arrays or tensors; outputs are tensors on
     ``device`` ("cuda" by default, which raises without a card; "cpu").
+    The threshold is truncated to int32 as ``SobelTPU`` does; :func:`sobel_fn`
+    compares it as JAX compares.
     """
 
     def __init__(self, sigma: float = 1.0, device="cuda"):
@@ -69,13 +72,13 @@ class SobelTorch:
 
     def __call__(self, img, threshold: int) -> torch.Tensor:
         self._check_threshold(threshold)
-        return sobel_fn(self._input(img, 2), threshold,
+        return sobel_fn(self._input(img, 2), threshold_int32(threshold),
                         kernel_vals=self.kernel)
 
     def batch(self, imgs, threshold: int) -> torch.Tensor:
         """(B, H, W) -> (B, H, W) int16 {0, 255}."""
         self._check_threshold(threshold)
-        return sobel_fn(self._input(imgs, 3), threshold,
+        return sobel_fn(self._input(imgs, 3), threshold_int32(threshold),
                         kernel_vals=self.kernel)
 
     def magnitude(self, img) -> torch.Tensor:

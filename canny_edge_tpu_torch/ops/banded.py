@@ -29,6 +29,7 @@ import torch
 
 from .dilate import dilate3x3
 from .packed import cdiv
+from .thresholds import at_least
 
 
 def band_params(h: int, w: int, band_h=None, group=None) -> tuple[int, int]:
@@ -99,7 +100,7 @@ def hysteresis_banded(nm: torch.Tensor, min_val: int, max_val: int, *,
     h, w = nm.shape
     band_h, _ = band_params(h, w, band_h, group)
     nb = cdiv(h, band_h)
-    weak = nm >= min_val
+    weak = at_least(nm, min_val)
     weak_b = _to_bands(weak, band_h, nb)
 
     def step(e, r, nbr):
@@ -122,7 +123,7 @@ def hysteresis_banded(nm: torch.Tensor, min_val: int, max_val: int, *,
                 break
         return e[:, 1:-1].reshape(nb * band_h, w)[:h]
 
-    edges = sweep(nm >= max_val)
+    edges = sweep(at_least(nm, max_val))
     sweeps = 1
     while bool(_growth(edges, weak).any()):
         edges = sweep(edges)

@@ -23,6 +23,7 @@ import torch
 
 from .banded import _growth, _shift, _to_bands, band_params, hflood
 from .packed import cdiv
+from .thresholds import at_least
 
 
 def hysteresis_banded_skip(nm: torch.Tensor, min_val: int, max_val: int, *,
@@ -38,7 +39,7 @@ def hysteresis_banded_skip(nm: torch.Tensor, min_val: int, max_val: int, *,
     band_h, _ = band_params(h, w, band_h, group)
     nb = cdiv(h, band_h)
     rows = band_h + 2
-    weak = nm >= min_val
+    weak = at_least(nm, min_val)
     weak_b = _to_bands(weak, band_h, nb)
     stats = {"rounds": [], "steps": 0, "states": []}
 
@@ -87,7 +88,7 @@ def hysteresis_banded_skip(nm: torch.Tensor, min_val: int, max_val: int, *,
         stats["rounds"].append(rounds.tolist())
         return e[:, 1:-1].reshape(nb * band_h, w)[:h]
 
-    edges = sweep(nm >= max_val)
+    edges = sweep(at_least(nm, max_val))
     sweeps = 1
     while bool(_growth(edges, weak).any()):
         edges = sweep(edges)

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from ..utils.constants import K3_TILE
 from .packed import cdiv
+from .thresholds import at_least
 
 DEFAULT_TILE = K3_TILE
 
@@ -67,7 +68,7 @@ def hysteresis_dilate(nm: torch.Tensor, min_val: int, max_val: int, *,
     h, w = nm.shape
     th, tw = tile_shape(h, w, tile)
     nty, ntx = cdiv(h, th), cdiv(w, tw)
-    weak = nm >= min_val
+    weak = at_least(nm, min_val)
     weak_t = halo_tiles(weak, th, tw)
 
     def sweep(edges):
@@ -80,7 +81,7 @@ def hysteresis_dilate(nm: torch.Tensor, min_val: int, max_val: int, *,
         inner = e[:, :, 1:-1, 1:-1].permute(0, 2, 1, 3)
         return inner.reshape(nty * th, ntx * tw)[:h, :w]
 
-    edges = sweep(weak & (nm >= max_val))
+    edges = sweep(weak & at_least(nm, max_val))
     sweeps = 1
     while True:
         new = sweep(edges)

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from .dilate import DEFAULT_TILE, dilate3x3, halo_tiles, tile_shape
 from .packed import cdiv
+from .thresholds import at_least
 
 
 def hysteresis_dilate_tiles(nm: torch.Tensor, min_val: int, max_val: int, *,
@@ -38,7 +39,7 @@ def hysteresis_dilate_tiles(nm: torch.Tensor, min_val: int, max_val: int, *,
     h, w = nm.shape
     th, tw = tile_shape(h, w, tile)
     nty, ntx = cdiv(h, th), cdiv(w, tw)
-    weak = nm >= min_val
+    weak = at_least(nm, min_val)
     weak_t = halo_tiles(weak, th, tw)
     stats = {"floods": [], "states": []}
 
@@ -51,7 +52,7 @@ def hysteresis_dilate_tiles(nm: torch.Tensor, min_val: int, max_val: int, *,
         return t.permute(0, 2, 1, 3).reshape(nty * th, ntx * tw)[:h, :w]
 
     # seeds nm >= max(min_val, max_val), masked by weak: see ops/dilate.py
-    bufs = [weak & (nm >= max_val), torch.zeros_like(weak)]
+    bufs = [weak & at_least(nm, max_val), torch.zeros_like(weak)]
     changed = torch.ones((nty, ntx), dtype=torch.bool, device=nm.device)
     sweep = 0
     while True:

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..utils.constants import INNER_DILATE_XLA
+from .thresholds import at_least
 
 _M32 = 0xFFFFFFFF
 
@@ -257,7 +258,8 @@ def hysteresis_packed_with_stats(nm: torch.Tensor, min_val: int,
     edges, rounds)`` (``canny_edge_tpu/ops/packed.py:
     hysteresis_packed_with_stats``)."""
     h, w = nm.shape[-2], nm.shape[-1]
-    edges, rounds = hysteresis_packed_masks(pack_mask(nm >= min_val),
-                                            pack_mask(nm >= max_val), h, w,
+    edges, rounds = hysteresis_packed_masks(pack_mask(at_least(nm, min_val)),
+                                            pack_mask(at_least(nm, max_val)),
+                                            h, w,
                                             inner_dilate, strict=strict)
     return unpack_edges(edges, w), rounds

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from .gaussian import gaussian_kernel
+from .thresholds import at_least
 from .window import NMS_OOB, blur, isqrt
 # int16 (..., H, W) -> int32 (gx, gy), JAX's ``xy_gradient``: gx with clamped
 # columns and the off-image row terms dropped, gy with clamped rows and the
@@ -169,8 +170,8 @@ def hysteresis_with_stats(nm, min_val, max_val, steps_per_check: int = 4,
     if mode not in MODES:
         raise ValueError(f"unknown hysteresis mode: {mode!r}")
     strict = mode == "strict-reference"
-    weak = nm >= min_val
-    edges = nm >= max_val
+    weak = at_least(nm, min_val)
+    edges = at_least(nm, max_val)
     rounds = 0
     while True:
         new = edges

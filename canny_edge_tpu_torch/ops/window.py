@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from .packed import cdiv, pack_mask  # noqa: F401  (cdiv: JAX's ops.window)
 from .shifts import clamp_shift_cols, clamp_shift_rows
+from .thresholds import at_least
 
 NMS_OOB = -32768
 
@@ -179,8 +180,8 @@ def frontend_block(window: torch.Tensor, row0: int, col0: int, H: int, W: int,
     if thresholds is None:
         return nm
     mn, mx = thresholds
-    return (pack_mask((nm >= int(mn)) & core),
-            pack_mask((nm >= int(mx)) & core))
+    return (pack_mask(at_least(nm, mn) & core),
+            pack_mask(at_least(nm, mx) & core))
 
 
 def frontend_nm(img: torch.Tensor, kernel, thresholds=None):

@@ -37,6 +37,7 @@ from ..ops.gaussian import gaussian_kernel
 from ..ops.packed import cdiv, hysteresis_packed_masks, unpack_edges
 from ..ops.shifts import shift_cols, shift_rows
 from ..ops.stages import quantize_angle
+from ..ops.thresholds import at_least, threshold_int32
 from ..ops.window import NMS_OOB, count_vector, isqrt
 from ..utils.constants import INNER_DILATE_XLA
 from .halo import (DATA_AXIS, X_AXIS, Y_AXIS, Mesh, halo_exchange_2d,
@@ -258,8 +259,8 @@ def _hysteresis_shard(nm: dict, mesh: Mesh, min_val, max_val, H, W,
     for b, t in nm.items():
         grow, gcol = _grid(b, t, H, W)
         inside = (grow < H) & (gcol < W)
-        weak[b] = ((t >= min_val) & inside).to(torch.uint8)
-        strong[b] = ((t >= max_val) & inside).to(torch.uint8)
+        weak[b] = (at_least(t, min_val) & inside).to(torch.uint8)
+        strong[b] = (at_least(t, max_val) & inside).to(torch.uint8)
         if strict and (t.shape[-2] < 2 or t.shape[-1] < 3):
             raise ValueError("strict sharded hysteresis needs blocks >= 2x3")
     wk = halo_exchange_2d(weak, k, mesh)
@@ -585,6 +586,8 @@ class ShardedCanny:
     def __call__(self, imgs, min_val: int, max_val: int):
         if not isinstance(imgs, ShardedBatch) and imgs.ndim != 3:
             raise ValueError("expected (B, H, W)")
+        # truncated to int32 as JAX's ShardedCanny does (30.5 means 30)
+        min_val, max_val = threshold_int32(min_val), threshold_int32(max_val)
         batch = self.shard_batch(imgs)
         self.rounds = []
         if self.engine == "static":

@@ -109,8 +109,15 @@ Phases (any failure exits non-zero and prints no result):
      (K2 also against its tile mirror, K4 at the band that ran), the entry
      points of each backend against the CPU and ``golden``, ``ShardedCanny``
      (K1 block mode, K2's quirk, the generic engine) against the fused
-     backend and ``golden``, and K1 on 65537 frames; printed on a ``sweep:``
-     line (cases by kernel and mode, launches, mismatches, seconds).
+     backend and ``golden``, and K1 on 65537 frames; then, appended, a
+     sigma-0.1 configuration against ``golden`` and the threshold cases
+     (``THRESHOLD_CONFIGS``, 9 frame and 2 sharded configurations, with
+     fractional, float32-rounded, NumPy float32, 0-d CUDA tensor, NaN and
+     +-inf thresholds: K1's threshold mode, K2's NMS-map entry, K3 and K4
+     against their plain versions, the functional entry points against the
+     CPU and ``golden``, the model classes, which truncate, against the
+     CPU); printed on a ``sweep:`` line (cases by kernel and mode,
+     launches, threshold cases, mismatches, seconds).
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Every measured number also goes to
 standard error as one ``report:`` JSON line and to
@@ -216,6 +223,42 @@ MESHES = ((1, 1, 8), (1, 8, 1), (1, 2, 4), (1, 4, 2), (2, 2, 2),
           (2, 1, 4), (2, 4, 1), (4, 2, 1), (4, 1, 2), (8, 1, 1))
 
 
+# Phase 14's threshold cases, appended to the draws (which stay as they
+# are): these frame and sharded configurations also run every kind of
+# threshold pair of :func:`threshold_pair` around their integers
+THRESHOLD_CONFIGS = ("sweep3", "sweep5", "sweep6", "sweep14", "sweep19",
+                     "sweep22", "fuzz0", "fuzz8", "sigma0.1", "sharded10",
+                     "sharded11")
+PAIR_KINDS = ("half", "eps", "float32", "tensor", "nan", "inf", "-inf",
+              "-inf-nan")
+MODEL_KINDS = PAIR_KINDS[:4]      # the model classes take [0, 255] only
+
+
+def threshold_pair(kind, mn, mx, device="cpu"):
+    """The thresholds a caller passes, of ``kind``, around the integers
+    ``mn`` and ``mx`` (``mx`` <= 254): fractions (``half``), values that
+    float32 rounds to the integers (``eps``), NumPy float32 scalars, 0-d
+    float32 tensors on ``device``, and NaN, +inf and -inf.  The model
+    classes truncate the first four to ``(mn, mx)``; everything else
+    compares them as JAX does (:func:`golden_pair`)."""
+    nan, inf = float("nan"), float("inf")
+    if kind == "tensor":
+        import torch
+
+        return tuple(torch.tensor(t, dtype=torch.float32, device=device)
+                     for t in (mn + 0.5, mx + 0.25))
+    return {"half": (mn + 0.5, mx + 0.25), "eps": (mn + 1e-8, mx + 1e-8),
+            "float32": (np.float32(mn + 0.5), np.float32(mx + 0.5)),
+            "nan": (nan, mx + 0.5), "inf": (mn + 0.5, inf),
+            "-inf": (-inf, mx), "-inf-nan": (-inf, nan)}[kind]
+
+
+def golden_pair(kind, mn, mx):
+    """:func:`threshold_pair` as ``golden`` takes it: each float as the
+    float32 that JAX compares with (``golden`` compares in float64)."""
+    return tuple(float(np.float32(t)) for t in threshold_pair(kind, mn, mx))
+
+
 def _sweep_size(rng, hi, edges):
     """1 .. ``hi``: half the draws within +-2 of a multiple of an edge."""
     if rng.random() < 0.5:
@@ -271,6 +314,11 @@ def sweep_configs(seed=SWEEP_SEED, n=24, max_hw=(1200, 2100)):
     ``sharded``: ``tests/test_fuzz_sharded.py``'s thirteen configurations
     (seed 20260820) with their meshes ``(data, y, x)`` and frames (``batch``
     = data), keys ``name, h, w, sigma, mn, mx, mesh, batch, img_seed``.
+
+    ``fixed``: one frame configuration, not drawn: sigma 0.1 (taps 1.93e-22,
+    1.0, 1.93e-22) on three 96x130 ramps XOR noise/4, where JAX's blur
+    writes -32768 and the port must still equal ``golden``.
+    ``thresholds``: the names of :data:`THRESHOLD_CONFIGS`.
     """
     rng = np.random.default_rng(seed)
     frames = []
@@ -322,20 +370,31 @@ def sweep_configs(seed=SWEEP_SEED, n=24, max_hw=(1200, 2100)):
     sharded += [(10, 131, 251, 1.0, 30, 90, (1, 2, 4)),
                 (11, 10, 12, 2.0, 20, 60, (1, 2, 4)),
                 (12, 97, 203, 1.0, 0, 40, (2, 2, 2))]
+    fixed = [{"name": "sigma0.1", "h": 96, "w": 130, "sigma": 0.1, "mn": 30,
+              "mx": 90, "strict": False, "batch": 3, "image": "ramp",
+              "img_seed": 7, "nm": None, "nm_seed": 0, "quirk_rw": (0, 0)}]
     return {"frames": frames, "sharded": [
         {"name": f"sharded{i}", "h": h, "w": w, "sigma": sigma, "mn": mn,
          "mx": mx, "mesh": mesh, "batch": mesh[0], "img_seed": 2000 + i}
-        for i, h, w, sigma, mn, mx, mesh in sharded]}
+        for i, h, w, sigma, mn, mx, mesh in sharded],
+        "fixed": fixed, "thresholds": list(THRESHOLD_CONFIGS)}
 
 
 def sweep_images(cfg):
     """uint8 ``(batch, h, w)`` frames of a sweep configuration: uniform
-    noise from ``img_seed`` (JAX's fuzz frames), or the headline scene
+    noise from ``img_seed`` (JAX's fuzz frames), a diagonal ramp XOR
+    noise/4 from ``img_seed + b``, or the headline scene
     (``bench_torch.make_image``) from ``img_seed + b``."""
     b, h, w = cfg["batch"], cfg["h"], cfg["w"]
     if cfg.get("image", "noise") == "noise":
         return np.random.default_rng(cfg["img_seed"]).integers(
             0, 256, (b, h, w), np.uint8)
+    if cfg["image"] == "ramp":
+        y, x = np.mgrid[:h, :w]
+        ramp = ((y + x) * 255 // max(h + w - 2, 1)).astype(np.uint8)
+        return np.stack([ramp ^ (np.random.default_rng(
+            cfg["img_seed"] + i).integers(0, 256, (h, w), np.uint8) // 4)
+            for i in range(b)])
     return np.stack([make_image(h, w, seed=cfg["img_seed"] + i)
                      for i in range(b)])
 
@@ -1328,7 +1387,14 @@ def _oracle(kind, *args):
     * ``k4``: (map, lo, hi, band_h) -> the plain K4 (``ops/banded.py``) at
       ``band_h``: edges and sweeps;
     * ``mirror``: (weak, strong, h, w, strict, quirk_rw) -> K2's tile mirror
-      (``ops/packed_tiles.py``): packed edges and steps."""
+      (``ops/packed_tiles.py``): packed edges and steps;
+    * ``golden_pairs``: (frames, sigma, pairs, strict) -> the oracle's edges
+      of the frames at each threshold pair (its NMS map once a frame);
+    * ``cpu_pairs``: (frames, sigma, mn, mx, kinds, strict) -> for each
+      kind of :func:`threshold_pair`, ``canny_fn`` (``xla``) on the CPU and
+      ``canny_fn_packed``'s edges;
+    * ``k34_pair``: (map, kind, mn, mx) -> the plain K3's and K4's edges at
+      the pair."""
     import torch
 
     from canny_edge_tpu_torch import CannyTorch, golden
@@ -1350,6 +1416,36 @@ def _oracle(kind, *args):
                            device="cpu")
         return (model.batch(frames, mn, mx).numpy(),
                 model.batch_packed(frames, mn, mx).view(torch.int32).numpy())
+    if kind == "golden_pairs":
+        frames, sigma, pairs, strict = args
+        hyst = golden.hysteresis_strict if strict else golden.hysteresis
+        nms = [golden.nonmax_suppression(*golden.sobel(
+            golden.gaussian_blur(f, sigma))) for f in frames]
+        return [np.stack([hyst(nm, lo, hi) for nm in nms])
+                for lo, hi in pairs]
+    if kind == "cpu_pairs":
+        from canny_edge_tpu_torch import models
+        from canny_edge_tpu_torch.ops.gaussian import gaussian_kernel
+
+        frames, sigma, mn, mx, kinds, strict = args
+        kv = gaussian_kernel(sigma)
+        mode = "strict-reference" if strict else "component"
+        imgs = torch.from_numpy(frames)
+        out = []
+        for k in kinds:
+            a, c = threshold_pair(k, mn, mx)
+            out.append((models.canny_fn(imgs, a, c, kernel_vals=kv,
+                                        hysteresis_mode=mode).numpy(),
+                        models.canny_fn_packed(
+                            imgs, a, c, kernel_vals=kv,
+                            hysteresis_mode=mode).view(torch.int32).numpy()))
+        return out
+    if kind == "k34_pair":
+        nm, k, mn, mx = args
+        a, c = threshold_pair(k, mn, mx)
+        m = torch.from_numpy(nm)
+        return (Dl.hysteresis_dilate(m, a, c).numpy(),
+                Bd.hysteresis_banded(m, a, c).numpy())
     if kind == "k3":
         nm, lo, hi = args
         edges, sweeps = Dl.hysteresis_dilate(torch.from_numpy(nm), lo, hi,
@@ -1402,6 +1498,11 @@ def sweep_phase(dev, cfgs=None, workers=6, chunked=(65537, 1, 3)):
     * ``CannyTorch`` with each backend on the batch against its frames one
       by one and against ``CannyTorch`` on the CPU, ``canny_fn_packed``
       against the CPU's packed edges, and the edges against ``golden``.
+    The fixed configuration (sigma 0.1) runs the same, with every backend
+    against ``golden``; the configurations named in ``cfgs["thresholds"]``
+    then run each kind of :func:`threshold_pair` (``check_thresholds``), the
+    sharded ones through ``ShardedCanny``, which truncates, against its
+    integer run.
     Every sharded configuration runs ``ShardedCanny`` on an in-process mesh
     of its blocks on the card, component and strict, against the fused
     backend on the card and ``golden``; the static engine (K1 block mode,
@@ -1422,10 +1523,12 @@ def sweep_phase(dev, cfgs=None, workers=6, chunked=(65537, 1, 3)):
     from canny_edge_tpu_torch.kernels import hysteresis as k3
     from canny_edge_tpu_torch.kernels import hysteresis_packed as khp
     from canny_edge_tpu_torch.kernels import hysteresis_v2 as k4
-    from canny_edge_tpu_torch.models import canny_fn_packed
+    from canny_edge_tpu_torch.models import (canny_fn, canny_fn_batched,
+                                             canny_fn_packed)
     from canny_edge_tpu_torch.ops import packed as P
     from canny_edge_tpu_torch.ops import window as Wn
     from canny_edge_tpu_torch.ops.gaussian import gaussian_kernel
+    from canny_edge_tpu_torch.ops.thresholds import threshold_bound
     from canny_edge_tpu_torch.parallel import ShardedCanny, make_mesh
 
     t0 = time.perf_counter()
@@ -1439,6 +1542,7 @@ def sweep_phase(dev, cfgs=None, workers=6, chunked=(65537, 1, 3)):
     bands = {}                    # K4's band that ran, by configuration
     mismatches = []
     pending = []                  # (tag, cfg, future, compare(result))
+    thr_ran = set()               # configurations that ran threshold cases
 
     def sync():
         if dev.type == "cuda":
@@ -1531,10 +1635,106 @@ def sweep_phase(dev, cfgs=None, workers=6, chunked=(65537, 1, 3)):
                           r[0] if n == r[1] else
                           f"{what}[{i}]: {n} sweeps, plain {r[1]}", o))
 
+    def check_thresholds(cfg, imgs, imgs_np, nm_b, kern, taps, models,
+                         cpu_ref):
+        """Every kind of :func:`threshold_pair` on one frame configuration:
+        K1's threshold mode, K2's NMS-map entry, K3 and K4 against their
+        plain versions (K1 and K2 on the card, K3 and K4 on the CPU for the
+        first frame; the batch against the plain packed flood on the card);
+        ``canny_fn``, ``canny_fn_batched`` and ``canny_fn_packed`` of each
+        backend against the CPU pipeline and ``golden`` (in strict mode
+        only the finite pairs: the reference's BFS defines no other); the
+        model classes, which truncate, against the CPU at ``(mn, mx)``."""
+        thr_ran.add(cfg["name"])
+        b = imgs_np.shape[0]
+        sigma, mn, mx, strict = (cfg["sigma"], cfg["mn"], cfg["mx"],
+                                 cfg["strict"])
+        mode = "strict-reference" if strict else "component"
+        gold_kinds = [k for k in PAIR_KINDS if not strict
+                      or np.isfinite(golden_pair(k, mn, mx)).all()]
+        gold = pool.submit(_oracle, "golden_pairs", imgs_np, sigma,
+                           [golden_pair(k, mn, mx) for k in gold_kinds],
+                           strict)
+        cpu = pool.submit(_oracle, "cpu_pairs", imgs_np, sigma, mn, mx,
+                          PAIR_KINDS, strict)
+        for j, kind in enumerate(PAIR_KINDS):
+            a, c = threshold_pair(kind, mn, mx, dev)
+            # ---- K1's threshold mode, a frame and the batch ----
+            plain = [Wn.frontend_nm(imgs[i], kern, (a, c)) for i in range(b)]
+            for i in range(b):
+                for got, want in zip(kfe.frontend(imgs[i], taps, (a, c)),
+                                     plain[i]):
+                    same("thr_k1", cfg, host(got), host(want))
+            for got, want in zip(kfe.frontend(imgs, taps, (a, c)),
+                                 zip(*plain)):
+                same("thr_k1_batch", cfg, host(got),
+                     host(torch.stack(want)))
+            # ---- K2's NMS-map entry, K3 and K4, int16 and int32 maps ----
+            for m in (nm_b, nm_b.to(torch.int32)):
+                flood = torch.stack([P.hysteresis_packed(f, a, c,
+                                                         strict=strict)
+                                     for f in m])
+                same("thr_k2_nm", cfg, host(khp.hysteresis_packed_nm(
+                    m, a, c, strict=strict)), host(flood))
+                same("thr_k2_nm_packed", cfg, host(khp.hysteresis_packed_nm(
+                    m[0], a, c, strict=strict, packed_out=True)),
+                    host(P.pack_mask(flood[0] > 0)))
+                if strict:
+                    continue       # K3 and K4 have no strict mode
+                # with lo above hi the engines seed differently, as in JAX
+                # (K4 keeps a strong pixel that is not weak): only K3 and K4
+                # against their own plain versions then
+                ordered = (threshold_bound(a, m.dtype)
+                           <= threshold_bound(c, m.dtype))
+                plain34 = (pool.submit(_oracle, "k34_pair", host(m[0]), kind,
+                                       mn, mx)
+                           if m.dtype == torch.int16 else None)
+                for name, fn in (("k3", k3.hysteresis_dilate),
+                                 ("k4", k4.hysteresis_banded)):
+                    out = host(fn(m, a, c))
+                    if ordered:
+                        same(f"thr_{name}_flood", cfg, out, host(flood))
+                    if plain34 is not None:
+                        later(f"thr_{name}_plain", cfg, plain34,
+                              lambda r, o=out[0], n=name: (r[n == "k4"], o))
+            # ---- the functional entry points, each backend ----
+            for backend in ("fused", "pallas", "xla"):
+                one = host(canny_fn(imgs[0], a, c, kernel_vals=taps,
+                                    backend=backend, hysteresis_mode=mode))
+                many = host(canny_fn_batched(imgs, a, c, kernel_vals=taps,
+                                             backend=backend,
+                                             hysteresis_mode=mode))
+                later(f"thr_canny_fn_{backend}", cfg, cpu,
+                      lambda r, j=j, o=one: (r[j][0][0], o))
+                later(f"thr_canny_fn_batched_{backend}", cfg, cpu,
+                      lambda r, j=j, o=many: (r[j][0], o))
+                if kind in gold_kinds:
+                    g = gold_kinds.index(kind)
+                    later(f"thr_golden_{backend}", cfg, gold,
+                          lambda r, g=g, o=many: (r[g], o))
+            packed = host(canny_fn_packed(imgs, a, c, kernel_vals=taps,
+                                          hysteresis_mode=mode))
+            later("thr_canny_fn_packed", cfg, cpu,
+                  lambda r, j=j, o=packed: (r[j][1], o))
+            # ---- the model classes truncate ----
+            if kind not in MODEL_KINDS:
+                continue
+            for backend, model in models.items():
+                # cpu_ref: (the batch's edges, its packed edges) at (mn, mx)
+                for tag, got, pick in (
+                        ("call", model(imgs[0], a, c), lambda r: r[0][0]),
+                        ("batch", model.batch(imgs, a, c), lambda r: r[0]),
+                        ("packed", model.packed(imgs[0], a, c),
+                         lambda r: r[1][0]),
+                        ("batch_packed", model.batch_packed(imgs, a, c),
+                         lambda r: r[1])):
+                    later(f"thr_model_{tag}_{backend}", cfg, cpu_ref,
+                          lambda r, o=host(got), pick=pick: (pick(r), o))
+
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(
             workers, mp_context=ctx, initializer=_oracle_init) as pool:
-        for cfg in cfgs["frames"]:
+        for cfg in cfgs["frames"] + cfgs.get("fixed", []):
             imgs_np = sweep_images(cfg)
             b, h, w = imgs_np.shape
             sigma, mn, mx, strict = (cfg["sigma"], cfg["mn"], cfg["mx"],
@@ -1583,10 +1783,10 @@ def sweep_phase(dev, cfgs=None, workers=6, chunked=(65537, 1, 3)):
                 check_engines(cfg, cfg["nm"], on_card(extra)[None], lo, hi,
                               dilate=cfg["nm"] != "snake")
             # ---- the entry points, each backend ----
-            outs = {}
+            outs, models = {}, {}
             for backend in ("fused", "pallas", "xla"):
-                model = CannyTorch(sigma, hysteresis_mode=mode,
-                                   backend=backend, device=dev)
+                model = models[backend] = CannyTorch(
+                    sigma, hysteresis_mode=mode, backend=backend, device=dev)
                 outs[backend] = host(model.batch(imgs, mn, mx))
                 same(f"batch_vs_frames_{backend}", cfg, outs[backend],
                      np.stack([host(model(imgs[i], mn, mx))
@@ -1601,8 +1801,15 @@ def sweep_phase(dev, cfgs=None, workers=6, chunked=(65537, 1, 3)):
                   lambda r, packed=packed: (r[1], packed))
             later("golden", cfg, refs["golden"],
                   lambda r, out=outs["fused"]: (r, out))
+            if cfg in cfgs.get("fixed", []):     # sigma 0.1: every backend
+                for backend in ("pallas", "xla"):
+                    later(f"golden_{cfg['name']}_{backend}", cfg,
+                          refs["golden"], lambda r, o=outs[backend]: (r, o))
+            if cfg["name"] in cfgs.get("thresholds", ()):
+                check_thresholds(cfg, imgs, imgs_np, nm_b, kern, taps,
+                                 models, refs["cpu"])
         # ---- the sharded configurations ----
-        engines, meshes = set(), set()
+        engines, meshes, thr_engines = set(), set(), set()
         for cfg in cfgs["sharded"]:
             imgs_np = np.random.default_rng(cfg["img_seed"]).integers(
                 0, 256, (cfg["batch"], cfg["h"], cfg["w"]), np.uint8)
@@ -1619,6 +1826,13 @@ def sweep_phase(dev, cfgs=None, workers=6, chunked=(65537, 1, 3)):
                 same(tag, cfg, out, host(CannyTorch(
                     cfg["sigma"], hysteresis_mode=mode, device=dev).batch(
                         imgs_np, cfg["mn"], cfg["mx"])))
+                if cfg["name"] in cfgs.get("thresholds", ()) and not strict:
+                    thr_engines.add(model.engine)   # truncates, as JAX does
+                    thr_ran.add(cfg["name"])
+                    for kind in MODEL_KINDS:
+                        same(f"thr_sharded_{model.engine}", cfg,
+                             host(model(imgs_np, *threshold_pair(
+                                 kind, cfg["mn"], cfg["mx"], dev))), out)
                 later(f"{tag}_golden", cfg, pool.submit(
                     _oracle, "golden", imgs_np, cfg["sigma"], cfg["mn"],
                     cfg["mx"], strict), lambda r, out=out: (r, out))
@@ -1654,6 +1868,9 @@ def sweep_phase(dev, cfgs=None, workers=6, chunked=(65537, 1, 3)):
     launches.update({f"{k}_batch": m.batch_launches for k, m in mods.items()},
                     **sharded_launches)
     rep = {"cases": dict(sorted(cases.items())), "launches": launches,
+           "threshold_cases": sum(v for k, v in cases.items()
+                                  if k.startswith("thr_")),
+           "threshold_kinds": list(PAIR_KINDS),
            "engines": sorted(engines), "meshes": sorted(meshes),
            "k4_band_h": bands, "mismatches": len(mismatches),
            "mismatch_list": mismatches[:50],
@@ -1663,6 +1880,13 @@ def sweep_phase(dev, cfgs=None, workers=6, chunked=(65537, 1, 3)):
           f"{mismatches[:5]}")
     check(engines == ({"static", "generic"} if cfgs["sharded"] else set()),
           f"sharded engines {engines}")
+    want = {c["name"] for c in cfgs["frames"] + cfgs.get("fixed", [])
+            + cfgs["sharded"]} & set(cfgs.get("thresholds", ()))
+    check(thr_ran == want, f"threshold cases ran on {sorted(thr_ran)}, "
+          f"not on {sorted(want - thr_ran)}")
+    check(not any(c.startswith("sharded") for c in want)
+          or thr_engines == {"static", "generic"},
+          f"threshold cases on the sharded engines {thr_engines}")
     check(all(v for k, v in launches.items() if cfgs["sharded"]
               or k in mods), f"a kernel of the sweep never launched: "
           f"{launches}")
@@ -2466,6 +2690,8 @@ def main():
         "card": card, "configurations": sw["configurations"],
         "cases": sw["cases"], "launches": sw["launches"],
         "engines": sw["engines"], "meshes": sw["meshes"],
+        "threshold_cases": sw["threshold_cases"],
+        "threshold_kinds": sw["threshold_kinds"],
         "mismatches": sw["mismatches"],
         "s": sw["s"]}), flush=True)
     report["total_s"] = time.perf_counter() - t_run
