@@ -37,6 +37,8 @@ SIGNATURES = {
                            _P],
         "canny_frontend_block": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I,
                                  _I, _I, _P, _P, _P, _P],
+        "canny_frontend_large": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I,
+                                 _I, _I, _I, _P, _P, _P, _P, _L, _P],
         "canny_frontend_max_window": [],
     },
     "hysteresis_packed": {
@@ -54,10 +56,10 @@ SIGNATURES = {
     "hysteresis_banded": {
         "canny_banded_smem_bytes": [_I, _I],
         "canny_banded_smem_limit": [],
-        "canny_banded_max_width": [],
         "canny_banded_scratch_words": [],
+        "canny_banded_row_words": [_I, _I, _I, _I],
         "canny_banded": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P,
-                         _L, _P],
+                         _I, _P, _L, _P],
     },
 }
 

@@ -14,7 +14,10 @@
 // bounds it, so the design is about few instructions per pixel.
 //
 // Design: one block of 256 threads per 64x64 output tile, every stage in
-// shared memory, no intermediate in device memory.
+// shared memory, no intermediate in device memory, for every window whose
+// tile fits a block's shared memory (263 taps on the H100); a wider window
+// takes the scratch path (canny_frontend_large, below): the blur through
+// device memory, then the same back half on tiles of it.
 //   load    the uint8 tile with its halo (window/2 + 2 texels), zero filled
 //           off the image; 16-byte cp.async where the row address allows
 //           (W a multiple of 16, chunk inside the image), else byte loads;
@@ -152,6 +155,136 @@ struct Frame {
   const uint8_t* src;
   int sh, sw, halo, oh, ow, row0, col0, H, W, B;
 };
+
+// The back half of a tile: Sobel, magnitude and direction, NMS and the
+// output, from the floored blur `sm` (rows [row0-2, row0+66) x columns
+// [col0-4, col0+68) of the image, XW floats a row) in shared memory; `mag`
+// is shared scratch of MAG_H x MAG_W int16.  Every thread of the block calls
+// it, after a barrier that publishes `sm`.
+__device__ __forceinline__ void back_half(const Frame& f, const float* sm,
+                                          int16_t* mag, int packed, int mn,
+                                          int mx, int16_t* __restrict__ nm_out,
+                                          uint32_t* __restrict__ weak,
+                                          uint32_t* __restrict__ strong) {
+  const int H = f.H, W = f.W;
+  const int ty0 = blockIdx.y * TILE_H, tx0 = blockIdx.x * TILE_W;
+  const int row0 = f.row0 + ty0, col0 = f.col0 + tx0;
+  const int tid = threadIdx.x;
+
+  // ---- Sobel, magnitude and direction on [row0-1, row0+65) x
+  //      [col0-3, col0+65), four adjacent pixels a thread ----
+  const bool interior = row0 >= 2 && row0 + TILE_H + 2 <= H && col0 >= 4
+                        && col0 + TILE_W + 2 <= W;
+  auto mag_stage = [&](auto inside_tag) {
+    constexpr bool INSIDE = decltype(inside_tag)::value;
+    for (int i = tid; i < MAG_H * (MAG_W / 4); i += THREADS) {
+      const int y = i / (MAG_W / 4), g = i % (MAG_W / 4);
+      // pixel (y, 4g + j) is blurred row y + 1, column 4g + j + 1: the patch
+      // is blurred rows y..y+2, columns 4g..4g+5
+      float s[3][6];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float* row = sm + (y + a) * XW + 4 * g;      // 16-byte aligned
+        const float4 q4 = *reinterpret_cast<const float4*>(row);
+        const float2 q2 = *reinterpret_cast<const float2*>(row + 4);
+        s[a][0] = q4.x; s[a][1] = q4.y; s[a][2] = q4.z; s[a][3] = q4.w;
+        s[a][4] = q2.x; s[a][5] = q2.y;
+      }
+      int v[4];
+      const int gr = row0 - 1 + y;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float gx, gy;
+        if constexpr (INSIDE) {
+          gx = (s[0][j + 2] - s[0][j]) + 2.0f * (s[1][j + 2] - s[1][j])
+               + (s[2][j + 2] - s[2][j]);
+          gy = (s[2][j] + 2.0f * s[2][j + 1] + s[2][j + 2])
+               - (s[0][j] + 2.0f * s[0][j + 1] + s[0][j + 2]);
+          v[j] = mag_dir(gx, gy);
+        } else {
+          // the reference border rules: gx takes clamped columns and drops
+          // off-image row terms, gy clamped rows and drops column terms
+          const int gc = col0 - 3 + 4 * g + j;
+          v[j] = MAG_OOB;
+          if (gr >= 0 && gr < H && gc >= 0 && gc < W) {
+            const bool up = gr > 0, dn = gr + 1 < H, lf = gc > 0, rt = gc + 1 < W;
+            const float l0 = lf ? s[0][j] : s[0][j + 1], r0 = rt ? s[0][j + 2] : s[0][j + 1];
+            const float l1 = lf ? s[1][j] : s[1][j + 1], r1 = rt ? s[1][j + 2] : s[1][j + 1];
+            const float l2 = lf ? s[2][j] : s[2][j + 1], r2 = rt ? s[2][j + 2] : s[2][j + 1];
+            gx = 2.0f * (r1 - l1) + (dn ? r2 - l2 : 0.0f) + (up ? r0 - l0 : 0.0f);
+            const float ul = up ? s[0][j] : s[1][j], dl = dn ? s[2][j] : s[1][j];
+            const float um = up ? s[0][j + 1] : s[1][j + 1];
+            const float dm = dn ? s[2][j + 1] : s[1][j + 1];
+            const float ur = up ? s[0][j + 2] : s[1][j + 2];
+            const float dr = dn ? s[2][j + 2] : s[1][j + 2];
+            gy = 2.0f * (dm - um) + (rt ? dr - ur : 0.0f) + (lf ? dl - ul : 0.0f);
+            v[j] = mag_dir(gx, gy);
+          }
+        }
+      }
+      const uint32_t lo = (uint32_t)(uint16_t)v[0] | ((uint32_t)(uint16_t)v[1] << 16);
+      const uint32_t hi = (uint32_t)(uint16_t)v[2] | ((uint32_t)(uint16_t)v[3] << 16);
+      *reinterpret_cast<uint2*>(mag + y * MAG_W + 4 * g) = make_uint2(lo, hi);
+    }
+  };
+  if (interior) mag_stage(std::true_type{});
+  else mag_stage(std::false_type{});
+  __syncthreads();
+
+  // ---- NMS + output: warp w walks 16 rows of one 32-column word of the
+  //      block; pixels past the image are 0 and clear ----
+  {
+    constexpr int ROWS = TILE_H / (THREADS / 64);
+    const int lane = tid & 31, warp = tid >> 5;
+    const int wd = (f.ow + 31) / 32;
+    const int x = (warp & 1) * 32 + lane;
+    const int y0 = (warp >> 1) * ROWS;
+    const int lc = tx0 + x;                            // column in the block
+    const int word = (tx0 >> 5) + (warp & 1);
+    const bool col_out = lc < f.ow;
+    const bool col_in = col_out && col0 + x < W;
+    const int rows = min(ROWS, f.oh - (ty0 + y0));     // warp-uniform
+    const int img_rows = H - (row0 + y0);              // rows in the image
+    const int mn4 = 4 * mn, mx4 = 4 * mx;
+    const bool writer = lane == 0 && word < wd;
+    const int16_t* p = mag + (y0 + 1) * MAG_W + x + 3;
+    // the four neighbour offsets by direction, one byte each
+    constexpr uint32_t OFFS = (uint32_t)MAG_W | (1u << 8)
+                              | ((uint32_t)(MAG_W - 1) << 16)
+                              | ((uint32_t)(MAG_W + 1) << 24);
+    const size_t o = packed
+        ? ((size_t)blockIdx.z * f.oh + ty0 + y0) * wd + word
+        : ((size_t)blockIdx.z * f.oh + ty0 + y0) * f.ow + lc;
+    uint32_t* wp = weak + o;
+    uint32_t* sp = strong + o;
+    int16_t* np = nm_out + o;
+#pragma unroll 4
+    for (int y = 0; y < rows; ++y, p += MAG_W) {
+      const int v0 = p[0];
+      const int off = (int)((OFFS >> (8 * (v0 & 3))) & 0xffu);
+      // with v = 4 m + d and d < 4: m0 > m  <=>  4 m0 > v.  Off-image
+      // neighbours read -4 and never suppress; ties suppress; an off-image
+      // pixel reads -4 itself and is never kept
+      const bool keep = (v0 & ~3) > max((int)p[-off], (int)p[off]);
+      // the kept value, 4 m0 + d, or 0: m0 >= t  <=>  4 m0 + d >= 4 t
+      const int vk = keep ? v0 : 0;
+      if (packed) {
+        const bool in = col_in && y < img_rows;
+        const unsigned bw = __ballot_sync(0xffffffffu, in && vk >= mn4);
+        const unsigned bs = __ballot_sync(0xffffffffu, in && vk >= mx4);
+        if (writer) {
+          *wp = bw;
+          *sp = bs;
+        }
+        wp += wd;
+        sp += wd;
+      } else {
+        if (col_out) *np = (int16_t)(vk >> 2);
+        np += f.ow;
+      }
+    }
+  }
+}
 
 template <int WINDOW>
 __global__ void __launch_bounds__(THREADS, 4)
@@ -332,119 +465,7 @@ frontend_kernel(Frame f, const float* __restrict__ taps, int window_rt,
   }
   __syncthreads();
 
-  // ---- Sobel, magnitude and direction on [row0-1, row0+65) x
-  //      [col0-3, col0+65), four adjacent pixels a thread ----
-  const bool interior = row0 >= 2 && row0 + TILE_H + 2 <= H && col0 >= 4
-                        && col0 + TILE_W + 2 <= W;
-  auto mag_stage = [&](auto inside_tag) {
-    constexpr bool INSIDE = decltype(inside_tag)::value;
-    for (int i = tid; i < MAG_H * (MAG_W / 4); i += THREADS) {
-      const int y = i / (MAG_W / 4), g = i % (MAG_W / 4);
-      // pixel (y, 4g + j) is blurred row y + 1, column 4g + j + 1: the patch
-      // is blurred rows y..y+2, columns 4g..4g+5
-      float s[3][6];
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const float* row = sm + (y + a) * XW + 4 * g;      // 16-byte aligned
-        const float4 q4 = *reinterpret_cast<const float4*>(row);
-        const float2 q2 = *reinterpret_cast<const float2*>(row + 4);
-        s[a][0] = q4.x; s[a][1] = q4.y; s[a][2] = q4.z; s[a][3] = q4.w;
-        s[a][4] = q2.x; s[a][5] = q2.y;
-      }
-      int v[4];
-      const int gr = row0 - 1 + y;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float gx, gy;
-        if constexpr (INSIDE) {
-          gx = (s[0][j + 2] - s[0][j]) + 2.0f * (s[1][j + 2] - s[1][j])
-               + (s[2][j + 2] - s[2][j]);
-          gy = (s[2][j] + 2.0f * s[2][j + 1] + s[2][j + 2])
-               - (s[0][j] + 2.0f * s[0][j + 1] + s[0][j + 2]);
-          v[j] = mag_dir(gx, gy);
-        } else {
-          // the reference border rules: gx takes clamped columns and drops
-          // off-image row terms, gy clamped rows and drops column terms
-          const int gc = col0 - 3 + 4 * g + j;
-          v[j] = MAG_OOB;
-          if (gr >= 0 && gr < H && gc >= 0 && gc < W) {
-            const bool up = gr > 0, dn = gr + 1 < H, lf = gc > 0, rt = gc + 1 < W;
-            const float l0 = lf ? s[0][j] : s[0][j + 1], r0 = rt ? s[0][j + 2] : s[0][j + 1];
-            const float l1 = lf ? s[1][j] : s[1][j + 1], r1 = rt ? s[1][j + 2] : s[1][j + 1];
-            const float l2 = lf ? s[2][j] : s[2][j + 1], r2 = rt ? s[2][j + 2] : s[2][j + 1];
-            gx = 2.0f * (r1 - l1) + (dn ? r2 - l2 : 0.0f) + (up ? r0 - l0 : 0.0f);
-            const float ul = up ? s[0][j] : s[1][j], dl = dn ? s[2][j] : s[1][j];
-            const float um = up ? s[0][j + 1] : s[1][j + 1];
-            const float dm = dn ? s[2][j + 1] : s[1][j + 1];
-            const float ur = up ? s[0][j + 2] : s[1][j + 2];
-            const float dr = dn ? s[2][j + 2] : s[1][j + 2];
-            gy = 2.0f * (dm - um) + (rt ? dr - ur : 0.0f) + (lf ? dl - ul : 0.0f);
-            v[j] = mag_dir(gx, gy);
-          }
-        }
-      }
-      const uint32_t lo = (uint32_t)(uint16_t)v[0] | ((uint32_t)(uint16_t)v[1] << 16);
-      const uint32_t hi = (uint32_t)(uint16_t)v[2] | ((uint32_t)(uint16_t)v[3] << 16);
-      *reinterpret_cast<uint2*>(mag + y * MAG_W + 4 * g) = make_uint2(lo, hi);
-    }
-  };
-  if (interior) mag_stage(std::true_type{});
-  else mag_stage(std::false_type{});
-  __syncthreads();
-
-  // ---- NMS + output: warp w walks 16 rows of one 32-column word of the
-  //      block; pixels past the image are 0 and clear ----
-  {
-    constexpr int ROWS = TILE_H / (THREADS / 64);
-    const int lane = tid & 31, warp = tid >> 5;
-    const int wd = (f.ow + 31) / 32;
-    const int x = (warp & 1) * 32 + lane;
-    const int y0 = (warp >> 1) * ROWS;
-    const int lc = tx0 + x;                            // column in the block
-    const int word = (tx0 >> 5) + (warp & 1);
-    const bool col_out = lc < f.ow;
-    const bool col_in = col_out && col0 + x < W;
-    const int rows = min(ROWS, f.oh - (ty0 + y0));     // warp-uniform
-    const int img_rows = H - (row0 + y0);              // rows in the image
-    const int mn4 = 4 * mn, mx4 = 4 * mx;
-    const bool writer = lane == 0 && word < wd;
-    const int16_t* p = mag + (y0 + 1) * MAG_W + x + 3;
-    // the four neighbour offsets by direction, one byte each
-    constexpr uint32_t OFFS = (uint32_t)MAG_W | (1u << 8)
-                              | ((uint32_t)(MAG_W - 1) << 16)
-                              | ((uint32_t)(MAG_W + 1) << 24);
-    const size_t o = packed
-        ? ((size_t)blockIdx.z * f.oh + ty0 + y0) * wd + word
-        : ((size_t)blockIdx.z * f.oh + ty0 + y0) * f.ow + lc;
-    uint32_t* wp = weak + o;
-    uint32_t* sp = strong + o;
-    int16_t* np = nm_out + o;
-#pragma unroll 4
-    for (int y = 0; y < rows; ++y, p += MAG_W) {
-      const int v0 = p[0];
-      const int off = (int)((OFFS >> (8 * (v0 & 3))) & 0xffu);
-      // with v = 4 m + d and d < 4: m0 > m  <=>  4 m0 > v.  Off-image
-      // neighbours read -4 and never suppress; ties suppress; an off-image
-      // pixel reads -4 itself and is never kept
-      const bool keep = (v0 & ~3) > max((int)p[-off], (int)p[off]);
-      // the kept value, 4 m0 + d, or 0: m0 >= t  <=>  4 m0 + d >= 4 t
-      const int vk = keep ? v0 : 0;
-      if (packed) {
-        const bool in = col_in && y < img_rows;
-        const unsigned bw = __ballot_sync(0xffffffffu, in && vk >= mn4);
-        const unsigned bs = __ballot_sync(0xffffffffu, in && vk >= mx4);
-        if (writer) {
-          *wp = bw;
-          *sp = bs;
-        }
-        wp += wd;
-        sp += wd;
-      } else {
-        if (col_out) *np = (int16_t)(vk >> 2);
-        np += f.ow;
-      }
-    }
-  }
+  back_half(f, sm, mag, packed, mn, mx, nm_out, weak, strong);
 }
 
 // the shared memory a block of this window needs
@@ -483,13 +504,16 @@ cudaError_t launch(const Frame& f, const float* taps, int window, int packed,
   return cudaGetLastError();
 }
 
+bool valid(const Frame& f, int window) {
+  return !(f.oh <= 0 || f.ow <= 0 || f.H <= 0 || f.W <= 0 || f.halo < 0
+           || f.B < 1 || f.B > 65535
+           || f.sh != f.oh + 2 * f.halo || f.sw != f.ow + 2 * f.halo
+           || window < 1 || window % 2 == 0);
+}
+
 int run(const Frame& f, const void* taps, int window, int packed, int mn,
         int mx, void* nm_out, void* weak, void* strong, void* stream) {
-  if (f.oh <= 0 || f.ow <= 0 || f.H <= 0 || f.W <= 0 || f.halo < 0
-      || f.B < 1 || f.B > 65535
-      || f.sh != f.oh + 2 * f.halo || f.sw != f.ow + 2 * f.halo
-      || window < 1 || window % 2 == 0)
-    return (int)cudaErrorInvalidValue;
+  if (!valid(f, window)) return (int)cudaErrorInvalidValue;
 #define CANNY_FRONTEND_LAUNCH(WIN)                                            \
   return (int)launch<WIN>(f, (const float*)taps, window, packed, mn, mx,      \
                           (int16_t*)nm_out, (uint32_t*)weak,                  \
@@ -507,12 +531,194 @@ int run(const Frame& f, const void* taps, int window, int packed, int mn,
 #undef CANNY_FRONTEND_LAUNCH
 }
 
+// ---------------------------------------------------------------------------
+// Windows past a tile's shared memory: the blur through device memory
+// ---------------------------------------------------------------------------
+//
+// Output (oh, ow) at image pixel (row0, col0) needs the floored blur of rows
+// [row0-2, row0+oh+2) and columns [col0-2, col0+ow+2): NY x NX floats.  Three
+// kernels write it to scratch and a fourth reads tiles of it:
+//   divisors  cnt_x (NX) and cnt_y (NY), the tap-order sums of the tile path;
+//   x-pass    the renormalized row blur of rows [row0-2-c, row0+oh+2+c) (NT
+//             rows) over the NX columns, one output a thread; a chunk of TCH
+//             taps and the texels it reaches are staged in shared memory, the
+//             chunks in ascending order, so any window sums in tap order;
+//   y-pass    the floored column blur, YQ outputs a thread down a column from
+//             a rolling window of YQ rows in registers;
+//   tail      frontend_tail_kernel: a tile's slice of the blur into shared
+//             memory (zero past the scratch, where nothing is read), then the
+//             back half as above.
+// The arithmetic is the tile path's (ascending taps, __fmul_rn / __fadd_rn,
+// __fdiv_rn, floorf), so both give the same bits.  Off-image texels are 0 in
+// the x-pass as in the tile's load.  Scratch, in floats: cnt_x | cnt_y
+// (padded to 4) | tmp, B x NT x NX | blur, B x NY x NX.
+
+constexpr int LX = 256;    // x-pass threads and outputs a block
+constexpr int TCH = 256;   // x-pass taps a chunk
+constexpr int LY = 128;    // y-pass threads a block, a column each
+constexpr int YQ = 4;      // y-pass outputs a thread
+
+struct Large {
+  int nx, ny, nt;
+  size_t tmp, blur, total;   // offsets and size of the scratch, in floats
+};
+
+__host__ __device__ inline Large large_of(int B, int oh, int ow, int window) {
+  Large L;
+  L.nx = ow + 4;
+  L.ny = oh + 4;
+  L.nt = oh + 4 + 2 * (window / 2);
+  L.tmp = ((size_t)L.nx + L.ny + 3) / 4 * 4;
+  L.blur = L.tmp + (size_t)B * L.nt * L.nx;
+  L.total = L.blur + (size_t)B * L.ny * L.nx;
+  return L;
+}
+
+__global__ void large_divisors(Frame f, const float* __restrict__ taps,
+                               int window, float* __restrict__ cnt) {
+  const Large L = large_of(1, f.oh, f.ow, window);
+  const int c = window / 2;
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < L.nx + L.ny;
+       j += gridDim.x * blockDim.x) {
+    const bool is_x = j < L.nx;
+    const int g = is_x ? f.col0 - 2 + j : f.row0 - 2 + (j - L.nx);
+    const int n = is_x ? f.W : f.H;
+    float s = 1.0f;
+    if (g >= 0 && g < n) {
+      s = 0.0f;
+      for (int t = 0; t < window; ++t) {
+        const int q = g + t - c;
+        if (q >= 0 && q < n) s = __fadd_rn(s, taps[t]);
+      }
+    }
+    cnt[j] = s;
+  }
+}
+
+__global__ void __launch_bounds__(LX)
+large_xpass(Frame f, const float* __restrict__ taps, int window,
+            const float* __restrict__ cnt_x, float* __restrict__ tmp) {
+  __shared__ float tex[LX + TCH];      // texels of outputs x0.. at taps t0..
+  __shared__ float k_s[TCH];
+  const Large L = large_of(1, f.oh, f.ow, window);
+  const int c = window / 2, tid = threadIdx.x;
+  const int x0 = blockIdx.x * LX, x = x0 + tid;
+  const uint8_t* fsrc = f.src + (size_t)blockIdx.z * f.sh * f.sw;
+  float* ftmp = tmp + (size_t)blockIdx.z * L.nt * L.nx;
+  const float cx = x < L.nx ? cnt_x[x] : 1.0f;
+  for (int i = blockIdx.y; i < L.nt; i += gridDim.y) {
+    // image row gr, window row wr; output x is image column col0 - 2 + x
+    const int gr = f.row0 - 2 - c + i, wr = gr - f.row0 + f.halo;
+    const bool row_in = gr >= 0 && gr < f.H && wr >= 0 && wr < f.sh;
+    const uint8_t* src = fsrc + (size_t)(row_in ? wr : 0) * f.sw;
+    float acc = 0.0f;
+    for (int t0 = 0; t0 < window; t0 += TCH) {
+      const int n = min(TCH, window - t0);
+      __syncthreads();                 // the chunk before has been read
+      for (int q = tid; q < LX + TCH; q += LX) {
+        const int gc = f.col0 - 2 - c + x0 + t0 + q;
+        const int wc = gc - f.col0 + f.halo;
+        tex[q] = row_in && gc >= 0 && gc < f.W && wc >= 0 && wc < f.sw
+                     ? (float)src[wc] : 0.0f;
+      }
+      for (int q = tid; q < n; q += LX) k_s[q] = taps[t0 + q];
+      __syncthreads();
+      for (int t = 0; t < n; ++t)
+        acc = __fadd_rn(acc, __fmul_rn(tex[tid + t], k_s[t]));
+    }
+    if (x < L.nx) ftmp[(size_t)i * L.nx + x] = __fdiv_rn(acc, cx);
+  }
+}
+
+__global__ void __launch_bounds__(LY)
+large_ypass(Frame f, const float* __restrict__ taps, int window,
+            const float* __restrict__ cnt_y, const float* __restrict__ tmp,
+            float* __restrict__ blur) {
+  const Large L = large_of(1, f.oh, f.ow, window);
+  const int x = blockIdx.x * LY + threadIdx.x;
+  if (x >= L.nx) return;               // no barrier below
+  const float* ftmp = tmp + (size_t)blockIdx.z * L.nt * L.nx + x;
+  float* fblur = blur + (size_t)blockIdx.z * L.ny * L.nx + x;
+  for (int j0 = blockIdx.y * YQ; j0 < L.ny; j0 += gridDim.y * YQ) {
+    // output j0 + q takes tmp row j0 + q + t at tap t: v[q] holds it
+    float acc[YQ], v[YQ];
+#pragma unroll
+    for (int q = 0; q < YQ; ++q) {
+      acc[q] = 0.0f;
+      v[q] = j0 + q < L.nt ? ftmp[(size_t)(j0 + q) * L.nx] : 0.0f;
+    }
+    for (int t = 0; t < window; ++t) {
+      const float kt = __ldg(taps + t);
+#pragma unroll
+      for (int q = 0; q < YQ; ++q) acc[q] = __fadd_rn(acc[q], __fmul_rn(v[q], kt));
+#pragma unroll
+      for (int q = 0; q + 1 < YQ; ++q) v[q] = v[q + 1];
+      const int r = j0 + YQ + t;
+      v[YQ - 1] = r < L.nt ? ftmp[(size_t)r * L.nx] : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < YQ; ++q)
+      if (j0 + q < L.ny)
+        fblur[(size_t)(j0 + q) * L.nx] =
+            floorf(__fdiv_rn(acc[q], cnt_y[j0 + q]));
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 4)
+frontend_tail_kernel(Frame f, const float* __restrict__ blur, int packed,
+                     int mn, int mx, int16_t* __restrict__ nm_out,
+                     uint32_t* __restrict__ weak,
+                     uint32_t* __restrict__ strong) {
+  __shared__ __align__(16) float sm[SM_H * XW];
+  __shared__ __align__(16) int16_t mag[MAG_H * MAG_W];
+  const int nx = f.ow + 4, ny = f.oh + 4;
+  const float* fb = blur + (size_t)blockIdx.z * ny * nx;
+  // shared row y, column x: blur row ty0 + y, column tx0 - 2 + x
+  const int ty0 = blockIdx.y * TILE_H, tx0 = blockIdx.x * TILE_W;
+  for (int i = threadIdx.x; i < SM_H * XW; i += THREADS) {
+    const int by = ty0 + i / XW, bx = tx0 - 2 + i % XW;
+    sm[i] = by < ny && bx >= 0 && bx < nx ? fb[(size_t)by * nx + bx] : 0.0f;
+  }
+  __syncthreads();
+  back_half(f, sm, mag, packed, mn, mx, nm_out, weak, strong);
+}
+
+int run_large(const Frame& f, const float* taps, int window, int packed,
+              int mn, int mx, void* nm_out, void* weak, void* strong,
+              float* scratch, unsigned long long scratch_floats,
+              cudaStream_t stream) {
+  const Large L = large_of(f.B, f.oh, f.ow, window);
+  if (scratch == nullptr || scratch_floats < L.total)
+    return (int)cudaErrorInvalidValue;
+  float* cnt = scratch;
+  float* tmp = scratch + L.tmp;
+  float* blur = scratch + L.blur;
+  large_divisors<<<(L.nx + L.ny + 255) / 256, 256, 0, stream>>>(f, taps,
+                                                               window, cnt);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  large_xpass<<<dim3((L.nx + LX - 1) / LX, min(L.nt, 65535), f.B), LX, 0,
+                stream>>>(f, taps, window, cnt, tmp);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  large_ypass<<<dim3((L.nx + LY - 1) / LY, min((L.ny + YQ - 1) / YQ, 65535),
+                     f.B), LY, 0, stream>>>(f, taps, window, cnt + L.nx, tmp,
+                                            blur);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const dim3 grid((f.ow + TILE_W - 1) / TILE_W, (f.oh + TILE_H - 1) / TILE_H,
+                  f.B);
+  frontend_tail_kernel<<<grid, THREADS, 0, stream>>>(
+      f, blur, packed, mn, mx, (int16_t*)nm_out, (uint32_t*)weak,
+      (uint32_t*)strong);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // The largest odd window whose tile fits a block's shared memory on the
-// current device (0 if the device cannot be asked).
+// current device (0 if the device cannot be asked): the single-tile path's.
+// A wider window takes canny_frontend_large.
 int canny_frontend_max_window() {
   const int limit = masks::smem_optin_limit();
   int w = 1;
@@ -545,6 +751,27 @@ int canny_frontend_block(const void* window_u8, int oh, int ow, int halo,
   const Frame f{(const uint8_t*)window_u8, oh + 2 * halo, ow + 2 * halo, halo,
                 oh, ow, row0, col0, H, W, 1};
   return run(f, taps, window, packed, mn, mx, nm_out, weak, strong, stream);
+}
+
+// Any odd window, the blur through device memory (see run_large): img is
+// uint8 (B, oh + 2 halo, ow + 2 halo), its texel (halo, halo) pixel (row0,
+// col0) of an (H, W) image (the whole image: halo 0, (0, 0), (H, W) = (oh,
+// ow)); outputs as canny_frontend_block's, a frame apart for a batch.
+// scratch: scratch_floats float32, at least (ow + 4 + oh + 4, rounded up to
+// a multiple of 4) + B (ow + 4) (2 oh + 8 + 2 (window / 2)); fewer is
+// refused.  Four launches on `stream`; returns
+// cudaGetLastError().
+int canny_frontend_large(const void* img, int B, int halo, int oh, int ow,
+                         int row0, int col0, int H, int W, const void* taps,
+                         int window, int packed, int mn, int mx, void* nm_out,
+                         void* weak, void* strong, void* scratch,
+                         unsigned long long scratch_floats, void* stream) {
+  const Frame f{(const uint8_t*)img, oh + 2 * halo, ow + 2 * halo, halo,
+                oh, ow, row0, col0, H, W, B};
+  if (!valid(f, window)) return (int)cudaErrorInvalidValue;
+  return run_large(f, (const float*)taps, window, packed, mn, mx, nm_out,
+                   weak, strong, (float*)scratch, scratch_floats,
+                   (cudaStream_t)stream);
 }
 
 }  // extern "C"

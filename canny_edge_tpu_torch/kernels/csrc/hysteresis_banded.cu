@@ -61,14 +61,19 @@
 //             step costs little more than the vote that skipping needs), and
 //             costs ~1% where every band needs one round, as on frames.
 //   wide rows   W > 8192 keeps a block a band, a thread a word, with a
-//             second scan level over the warps' summaries (W <= 32768).
+//             second scan level over the warps' summaries (W <= 32768);
+//             above that a thread takes several consecutive words of a row
+//             and floods them serially on either side of the same scan
+//             (band_wide_kernel), its band in shared memory where it fits,
+//             else in device memory: any width.
 //   needs_more   a band that has settled has no growth inside; only its
 //             first and last row can gain from the neighbour band's new
 //             rows, so the test reads 2 rows a band.
 //
 // Shared memory: two masks of (band_h + 2) x ceil(W/32) words a band (127 KB
-// for band_h 64 at W = 7680) and two flag bits a row.  A band that does not
-// fit is refused by the wrapper.
+// for band_h 64 at W = 7680) and two flag bits a row.  Up to 32768 columns a
+// band that does not fit is refused by the wrapper (which first halves a
+// default band); above, a band that does not fit runs from device memory.
 //
 // Batch: B frames of (H, W) are one launch, the counterpart of jax.vmap over
 // the Pallas sweeps (canny_edge_tpu/kernels/fused.py:47).  The bands are
@@ -113,6 +118,7 @@ struct Args {
   uint32_t* e1;
   int16_t* out;        // int16 {0, 255} (H, W)
   int B, H, W, band_h, slots;
+  uint32_t* rows;      // band_wide_kernel<false>: 2 rows of words a block
   u64* more;           // 2 "needs more" tokens
   int* stats;          // sweeps, most rounds of a band, rounds summed, bands run
   u64 token;           // launch sequence number << 32
@@ -418,22 +424,21 @@ __global__ void __launch_bounds__(WARP_THREADS, 1) band_warp_kernel(Args a) {
 // a band a block: rows wider than a warp's 8 words a lane
 // ---------------------------------------------------------------------------
 
-// flood the seeds s along the weak runs w of a row held one word per thread
-// (word j = threadIdx.x); every thread of the block must call it
-__device__ __forceinline__ uint32_t hflood_row(uint32_t s, uint32_t w,
-                                               uint32_t* sg_up, uint32_t* sg_dn,
-                                               uint32_t* sp) {
+// The carries across a block whose threads hold consecutive pieces of a row,
+// thread k above thread k - 1: from each thread's summary (gen_up: a carry
+// leaves its top with none coming in; gen_dn: one leaves its bottom; prop: a
+// carry crosses it), the carry into its bottom (in_up) and into its top
+// (in_dn).  Every thread of the block must call it.
+__device__ __forceinline__ void block_carries(uint32_t gen_up, uint32_t gen_dn,
+                                              bool prop, uint32_t* sg_up,
+                                              uint32_t* sg_dn, uint32_t* sp,
+                                              uint32_t& in_up,
+                                              uint32_t& in_dn) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  uint32_t c = 0;
-  run_fill(w, s, c);
-  const uint32_t gen_up = c;               // a run from a seed reaches bit 31
-  c = 0;
-  run_fill_down(w, s, c);
-  const uint32_t gen_dn = c;               // ... reaches bit 0
   const uint32_t gu = __ballot_sync(FULL, gen_up);
   const uint32_t gd = __ballot_sync(FULL, gen_dn);
-  const uint32_t pp = __ballot_sync(FULL, w == FULL);
+  const uint32_t pp = __ballot_sync(FULL, prop);
   // the warp's own summary: a carry out of lane 31 (up) or lane 0 (down)
   // with no carry in, and whether a carry crosses the whole warp
   uint32_t cu = 0, cd = 0;
@@ -462,8 +467,23 @@ __device__ __forceinline__ uint32_t hflood_row(uint32_t s, uint32_t w,
   const uint32_t lu = run_fill(pp, gu, z);
   z = win_dn;
   const uint32_t ld = run_fill(__brev(pp), __brev(gd), z);
-  const uint32_t in_up = lane == 0 ? win_up : (lu >> (lane - 1)) & 1u;
-  const uint32_t in_dn = lane == 31 ? win_dn : (ld >> (30 - lane)) & 1u;
+  in_up = lane == 0 ? win_up : (lu >> (lane - 1)) & 1u;
+  in_dn = lane == 31 ? win_dn : (ld >> (30 - lane)) & 1u;
+}
+
+// flood the seeds s along the weak runs w of a row held one word per thread
+// (word j = threadIdx.x); every thread of the block must call it
+__device__ __forceinline__ uint32_t hflood_row(uint32_t s, uint32_t w,
+                                               uint32_t* sg_up, uint32_t* sg_dn,
+                                               uint32_t* sp) {
+  uint32_t c = 0;
+  run_fill(w, s, c);
+  const uint32_t gen_up = c;               // a run from a seed reaches bit 31
+  c = 0;
+  run_fill_down(w, s, c);
+  const uint32_t gen_dn = c;               // ... reaches bit 0
+  uint32_t in_up, in_dn;
+  block_carries(gen_up, gen_dn, w == FULL, sg_up, sg_dn, sp, in_up, in_dn);
   c = in_up;
   const uint32_t up = run_fill(w, s, c);
   c = in_dn;
@@ -536,15 +556,165 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1) band_block_kernel(Args a) {
   });
 }
 
-// dynamic shared memory of one band
+// ---------------------------------------------------------------------------
+// a band a block, several words a thread: rows wider than 32768 columns
+// ---------------------------------------------------------------------------
+
+// Thread k holds words [k wpt, (k + 1) wpt) of a row, wpt = ceil(wd / 1024).
+// A row step floods a thread's words serially (the carries out of its top
+// and bottom with none coming in, and whether a carry crosses all of them),
+// takes the carries across the block from block_carries, and floods its
+// words again with the carry that comes in.  The seeds of the step wait in
+// a row S between the two floods.  Band rows: with SMEM, the band's two
+// masks and S in shared memory, loaded and stored as the block-wide path
+// does; without, in device memory: the interior rows are the output
+// buffer's own rows (copied from the input buffer when the band starts),
+// the top halo row the input buffer's (never written), the bottom halo row
+// and S two rows of a.rows for this block, the weak rows the packed weak
+// mask's, every read through L2 (__ldcg: the buffers swap each sweep).
+// Rows past the frame read as 0 and their steps are skipped: nothing there
+// is weak, so a step leaves them 0.  Every step runs, as in the block-wide
+// path; the rounds, sweeps and results are the plain version's.
+template <bool SMEM>
+__global__ void __launch_bounds__(BLOCK_THREADS, 1) band_wide_kernel(Args a) {
+  extern __shared__ uint32_t smem[];
+  __shared__ uint32_t sg_up[32], sg_dn[32], sp[32];   // static_bytes()
+  const int H = a.H, wd = (a.W + 31) / 32, band_h = a.band_h;
+  const int R = band_h + 2, nbf = cdiv(H, band_h);
+  const int nb = a.B * nbf;       // bands of all frames
+  const int wpt = cdiv(wd, BLOCK_THREADS);
+  const int j0 = min((int)threadIdx.x * wpt, wd), j1 = min(j0 + wpt, wd);
+  uint32_t* S = SMEM ? smem + 2 * R * wd
+                     : a.rows + (size_t)blockIdx.x * 2 * wd;
+  uint32_t* halo_row = S + wd;    // without SMEM: the bottom halo row
+  auto get = [](const uint32_t* p) -> uint32_t {
+    if constexpr (SMEM) return *p;
+    else return __ldcg(p);
+  };
+
+  run_call(a, [&](const uint32_t* ein, uint32_t* eout) {
+    for (int b = blockIdx.x; b < nb; b += gridDim.x) {
+      const size_t f0 = (size_t)(b / nbf) * H * wd;   // its frame's words
+      const int top = (b % nbf) * band_h - 1;  // frame row of band row 0
+      auto in_frame = [&](int r) { return top + r >= 0 && top + r < H; };
+      auto frame_row = [&](const uint32_t* m, int r) {
+        return m + f0 + (size_t)(top + r) * wd;
+      };
+      // band row r of the edges and of the weak mask; null past the frame
+      auto erow = [&](int r) -> uint32_t* {
+        if (!in_frame(r)) return nullptr;
+        if constexpr (SMEM) return smem + (size_t)r * wd;
+        if (r == 0) return const_cast<uint32_t*>(frame_row(ein, 0));
+        if (r == R - 1) return halo_row;
+        return const_cast<uint32_t*>(frame_row(eout, r));
+      };
+      auto wrow = [&](int r) -> const uint32_t* {
+        if (!in_frame(r)) return nullptr;
+        if constexpr (SMEM) return smem + (size_t)(R + r) * wd;
+        return frame_row(a.weak, r);
+      };
+      __syncthreads();                  // the band before is done
+      if constexpr (SMEM) {
+        for (int r = 0; r < R; ++r) {
+          const bool in = in_frame(r);
+          for (int k = threadIdx.x; k < wd; k += BLOCK_THREADS) {
+            smem[(size_t)r * wd + k] = in ? __ldcg(frame_row(ein, r) + k) : 0u;
+            smem[(size_t)(R + r) * wd + k] =
+                in ? __ldcg(frame_row(a.weak, r) + k) : 0u;
+          }
+        }
+      } else {
+        for (int r = 1; r < R && in_frame(r); ++r) {
+          uint32_t* dst = erow(r);
+          for (int k = threadIdx.x; k < wd; k += BLOCK_THREADS)
+            dst[k] = __ldcg(frame_row(ein, r) + k);
+        }
+      }
+      __syncthreads();
+
+      // row r grows from row nbr, then floods its weak runs
+      auto step = [&](int r, int nbr) {
+        uint32_t* E = erow(r);
+        if (E == nullptr) return;       // past the frame (block-uniform)
+        const uint32_t* Wr = wrow(r);
+        const uint32_t* N = erow(nbr);
+        uint32_t cu = 0, cd = 0;
+        bool prop = j0 < j1;            // a carry crosses all its words
+        for (int j = j0; j < j1; ++j) {
+          const uint32_t w = get(Wr + j);
+          uint32_t sd = get(E + j);
+          if (N != nullptr)
+            sd |= hrow(j > 0 ? get(N + j - 1) : 0u, get(N + j),
+                       j + 1 < wd ? get(N + j + 1) : 0u) & w;
+          S[j] = sd;
+          run_fill(w, sd, cu);
+          prop = prop && w == FULL;
+        }
+        for (int j = j1 - 1; j >= j0; --j) run_fill_down(get(Wr + j), S[j], cd);
+        uint32_t in_up, in_dn;
+        block_carries(cu, cd, prop, sg_up, sg_dn, sp, in_up, in_dn);
+        uint32_t c = in_up;
+        for (int j = j0; j < j1; ++j) E[j] = run_fill(get(Wr + j), S[j], c);
+        c = in_dn;
+        for (int j = j1 - 1; j >= j0; --j)
+          E[j] = get(E + j) | run_fill_down(get(Wr + j), S[j], c);
+        __syncthreads();
+      };
+
+      int rounds = 0;
+      for (;;) {
+        for (int r = 1; r <= band_h + 1; ++r) step(r, r - 1);
+        for (int r = band_h; r >= 1; --r) step(r, r + 1);
+        ++rounds;
+        bool pending = false;
+        for (int r = 1; r <= band_h && in_frame(r) && !pending; ++r) {
+          const uint32_t* E = erow(r);
+          const uint32_t* Wr = wrow(r);
+          for (int j = j0; j < j1 && !pending; ++j) {
+            uint32_t h = 0;
+            for (int dr = -1; dr <= 1; ++dr) {
+              const uint32_t* n = erow(r + dr);
+              if (n != nullptr)
+                h |= hrow(j > 0 ? get(n + j - 1) : 0u, get(n + j),
+                          j + 1 < wd ? get(n + j + 1) : 0u);
+            }
+            pending = (get(Wr + j) & h & ~get(E + j)) != 0u;
+          }
+        }
+        if (!__syncthreads_or(pending)) break;
+      }
+      if (threadIdx.x == 0) count_rounds(a.stats, rounds);
+      if constexpr (SMEM) {
+        for (int r = 1; r <= band_h && top + r < H; ++r)
+          for (int k = threadIdx.x; k < wd; k += BLOCK_THREADS)
+            eout[f0 + (size_t)(top + r) * wd + k] = smem[(size_t)r * wd + k];
+      }
+    }
+  });
+}
+
+// dynamic shared memory of one band of the warp and block-wide kernels
 size_t band_bytes(int band_h, int W) {
   const size_t R = (size_t)band_h + 2, wd = (W + 31) / 32;
   return (2 * R * wd + 2 * ((R + 31) / 32)) * sizeof(uint32_t);
 }
 
+// ... of band_wide_kernel<true>: the two masks and the seed row
+size_t wide_bytes(int band_h, int W) {
+  const size_t R = (size_t)band_h + 2, wd = (W + 31) / 32;
+  return (2 * R * wd + wd) * sizeof(uint32_t);
+}
+
 // static shared memory of the kernel that takes rows of this width
 size_t static_bytes(int W) {
   return (W + 31) / 32 <= 32 * MAX_WPL ? 0 : 3 * 32 * sizeof(uint32_t);
+}
+
+// the dynamic and static shared memory one band of this width needs
+size_t smem_need(int band_h, int W) {
+  return ((W + 31) / 32 <= BLOCK_THREADS ? band_bytes(band_h, W)
+                                         : wide_bytes(band_h, W))
+         + static_bytes(W);
 }
 
 int sm_count(cudaError_t* err) {
@@ -559,44 +729,113 @@ int sm_count(cudaError_t* err) {
   return sms[dev];
 }
 
+// The launch of a call: the kernel of the width, its threads, dynamic shared
+// memory and bands a block, the grid, and the words of a.rows it needs (0
+// but for band_wide_kernel<false>).
+struct Plan {
+  const void* kernel;
+  int threads, slots, grid;
+  size_t smem;
+  long long row_words;
+};
+
+cudaError_t plan_of(int B, int H, int W, int band_h, Plan* p) {
+  const int wd = (W + 31) / 32;
+  if (B <= 0 || H <= 0 || W <= 0 || band_h <= 0) return cudaErrorInvalidValue;
+  cudaError_t e = cudaSuccess;
+  const int sms = sm_count(&e);
+  if (e != cudaSuccess) return e;
+  const int limit = masks::smem_optin_limit();
+  if (limit < 0) return cudaErrorInvalidValue;
+  const bool fits = smem_need(band_h, W) <= (size_t)limit;
+  const long long nbl = (long long)B * ((H + band_h - 1) / band_h);
+  if (nbl > INT_MAX) return cudaErrorInvalidValue;
+  const int nb = (int)nbl;             // bands of all frames
+  const long long nwords = (long long)B * H * wd;
+  p->slots = 1;
+  p->row_words = 0;
+  if (wd <= 32 * MAX_WPL) {
+    if (!fits) return cudaErrorInvalidValue;
+    const size_t per_band = band_bytes(band_h, W);
+    p->kernel = wd <= 32   ? (const void*)band_warp_kernel<1>
+                : wd <= 64 ? (const void*)band_warp_kernel<2>
+                : wd <= 128 ? (const void*)band_warp_kernel<4>
+                            : (const void*)band_warp_kernel<8>;
+    p->threads = WARP_THREADS;
+    // more bands than blocks: a block holds several, as far as they fit
+    int slots = (nb + sms - 1) / sms;
+    const int fit = (int)((size_t)limit / per_band);
+    if (slots > fit) slots = fit;
+    if (slots > MAX_SLOTS) slots = MAX_SLOTS;
+    p->slots = slots;
+    p->smem = per_band * slots;
+  } else if (wd <= BLOCK_THREADS) {
+    if (!fits) return cudaErrorInvalidValue;
+    p->kernel = (const void*)band_block_kernel;
+    p->threads = BLOCK_THREADS;
+    p->smem = band_bytes(band_h, W);
+  } else {
+    p->kernel = fits ? (const void*)band_wide_kernel<true>
+                     : (const void*)band_wide_kernel<false>;
+    p->threads = BLOCK_THREADS;
+    p->smem = fits ? wide_bytes(band_h, W) : 0;
+  }
+  int cap = 0;
+  e = masks::coop_blocks(p->kernel, p->threads, p->smem, 1, &cap);
+  if (e != cudaSuccess) return e;
+  // a band a warp slot or a block, and a thread a word for the two ends
+  long long want = (nb + p->slots - 1) / p->slots;
+  if ((nwords + p->threads - 1) / p->threads > want)
+    want = (nwords + p->threads - 1) / p->threads;
+  p->grid = (int)(want < cap ? want : cap);
+  if (wd > BLOCK_THREADS && !fits) p->row_words = 2LL * p->grid * wd;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory one band needs, the most this device gives a block (-1 if it
-// cannot be read), the widest image the kernel takes, and the number of
-// 64-bit control words of a call's scratch.
+// Shared memory one band needs on the path of its width, the most this
+// device gives a block (-1 if it cannot be read), and the number of 64-bit
+// control words of a call's scratch.  Up to 32768 columns a band must fit;
+// above, one that does not runs from device memory.
 int canny_banded_smem_bytes(int band_h, int W) {
-  const size_t b = band_bytes(band_h, W) + static_bytes(W);
+  const size_t b = smem_need(band_h, W);
   return b > INT_MAX ? INT_MAX : (int)b;
 }
 int canny_banded_smem_limit() { return masks::smem_optin_limit(); }
-int canny_banded_max_width() { return 32 * BLOCK_THREADS; }
 int canny_banded_scratch_words() { return 4; }
+
+// The uint32 words of device memory a call on B frames of (H, W) at band_h
+// needs for its band rows (`rows` of canny_banded): 0 where the band fits
+// shared memory; -1 if the call cannot be planned.
+int canny_banded_row_words(int B, int H, int W, int band_h) {
+  Plan p;
+  if (plan_of(B, H, W, band_h, &p) != cudaSuccess || p.row_words > INT_MAX)
+    return -1;
+  return (int)p.row_words;
+}
 
 // The whole engine for B frames (B = 1: one image), one cooperative launch
 // on `stream`: nm (int16 for nm_bytes 2, int32 for 4; B x H x W) -> out
 // (int16 {0, 255}, B x H x W) with weak = nm >= lo, seeds = nm >= hi.  weak,
-// e0 and e1 are (B, H, ceil(W/32)) uint32 scratch.  ctl:
-// canny_banded_scratch_words() 64-bit words, zeroed once by the caller: two
-// "needs more" tokens, then four ints the call leaves behind: sweeps (the
-// most of any frame), the most rounds of a band, the rounds of all bands
-// summed, the bands run.  token: launch sequence number << 32, never
-// reused.  Returns cudaGetLastError().
+// e0 and e1 are (B, H, ceil(W/32)) uint32 scratch; rows holds row_words
+// words, at least canny_banded_row_words(B, H, W, band_h) (null where that
+// is 0).  ctl: canny_banded_scratch_words() 64-bit words, zeroed once by the
+// caller: two "needs more" tokens, then four ints the call leaves behind:
+// sweeps (the most of any frame), the most rounds of a band, the rounds of
+// all bands summed, the bands run.  token: launch sequence number << 32,
+// never reused.  Returns cudaGetLastError().
 int canny_banded(const void* nm, int nm_bytes, int lo, int hi, void* weak,
                  void* e0, void* e1, void* out, int B, int H, int W,
-                 int band_h, void* ctl, unsigned long long token,
-                 void* stream) {
-  const int wd = (W + 31) / 32;
-  if (B <= 0 || H <= 0 || W <= 0 || band_h <= 0 || wd > BLOCK_THREADS
-      || (nm_bytes != 2 && nm_bytes != 4))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSuccess;
-  const int sms = sm_count(&e);
+                 int band_h, void* rows, int row_words, void* ctl,
+                 unsigned long long token, void* stream) {
+  if (nm_bytes != 2 && nm_bytes != 4) return (int)cudaErrorInvalidValue;
+  Plan p;
+  cudaError_t e = plan_of(B, H, W, band_h, &p);
   if (e != cudaSuccess) return (int)e;
-  const int limit = masks::smem_optin_limit();
-  const size_t per_band = band_bytes(band_h, W);
-  if (limit < 0 || per_band + static_bytes(W) > (size_t)limit)
+  if (p.row_words > 0 && (rows == nullptr || row_words < p.row_words))
     return (int)cudaErrorInvalidValue;
 
   Args a;
@@ -612,46 +851,15 @@ int canny_banded(const void* nm, int nm_bytes, int lo, int hi, void* weak,
   a.H = H;
   a.W = W;
   a.band_h = band_h;
-  a.slots = 1;
+  a.slots = p.slots;
+  a.rows = (uint32_t*)rows;
   a.more = (u64*)ctl;
   a.stats = (int*)(a.more + 2);
   a.token = token;
 
-  const long long nbl = (long long)B * ((H + band_h - 1) / band_h);
-  if (nbl > INT_MAX) return (int)cudaErrorInvalidValue;
-  const int nb = (int)nbl;             // bands of all frames
-  const long long nwords = (long long)B * H * wd;
-  const void* kernel;
-  int threads;
-  size_t smem = per_band;
-  if (wd <= 32 * MAX_WPL) {
-    kernel = wd <= 32   ? (const void*)band_warp_kernel<1>
-             : wd <= 64 ? (const void*)band_warp_kernel<2>
-             : wd <= 128 ? (const void*)band_warp_kernel<4>
-                         : (const void*)band_warp_kernel<8>;
-    threads = WARP_THREADS;
-    // more bands than blocks: a block holds several, as far as they fit
-    int slots = (nb + sms - 1) / sms;
-    const int fit = (int)((size_t)limit / per_band);
-    if (slots > fit) slots = fit;
-    if (slots > MAX_SLOTS) slots = MAX_SLOTS;
-    a.slots = slots;
-    smem = per_band * slots;
-  } else {
-    kernel = (const void*)band_block_kernel;
-    threads = BLOCK_THREADS;
-  }
-  int cap = 0;
-  e = masks::coop_blocks(kernel, threads, smem, 1, &cap);
-  if (e != cudaSuccess) return (int)e;
-  // a band a warp slot or a block, and a thread a word for the two ends
-  long long want = (nb + a.slots - 1) / a.slots;
-  if ((nwords + threads - 1) / threads > want)
-    want = (nwords + threads - 1) / threads;
-  const int grid = (int)(want < cap ? want : cap);
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(threads), args,
-                                  smem, (cudaStream_t)stream);
+  e = cudaLaunchCooperativeKernel(p.kernel, dim3(p.grid), dim3(p.threads),
+                                  args, p.smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

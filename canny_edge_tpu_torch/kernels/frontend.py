@@ -5,8 +5,13 @@ the packed uint32 ``(weak, strong)`` masks ``(H, ceil(W/32))``
 (:func:`frontend`), and the same for a ``(B, H, W)`` batch in one launch
 (JAX's ``vmap`` over its kernel); the same for one block of a larger image,
 given its window with the halo (:func:`frontend_block`, K1's block mode).
-A CPU tensor goes to the plain version (:mod:`..ops.window`, a frame at a
-time); a CUDA tensor goes to the kernel or raises.
+Any odd window: the tile path (every stage in one block's shared memory)
+takes the windows whose tile fits (:func:`max_window`, 263 on the H100), the
+scratch path every wider one (the blur through device memory, kept per
+device, stream and shape as :mod:`._scratch` keeps the floods'; then the
+same back half).  A CPU tensor goes to the plain version
+(:mod:`..ops.window`, a frame at a time); a CUDA tensor goes to the kernel
+or raises.
 """
 
 from __future__ import annotations
@@ -19,21 +24,68 @@ from ..ops.thresholds import threshold_bound
 from ..ops.window import frontend_block as frontend_block_plain
 from ..ops.window import frontend_nm as frontend_plain
 from . import _build
+from ._scratch import Scratch
 
 # kernel launches made by this wrapper (the main path's proof of use): all,
-# those in block mode, and those on a batch of two frames or more
+# those in block mode, those on a batch of two frames or more, and those on
+# the scratch path (a window wider than the tile path's)
 launches = 0
 block_launches = 0
 batch_launches = 0
+scratch_launches = 0
 
 MAX_BATCH = 65535    # frames a launch: the grid's z limit
+# the scratch path's float32 scratch a launch at most (1 GiB): a batch
+# whose frames need more runs in chunks of fewer frames
+SCRATCH_FLOATS = 1 << 28
 
 _max_window: dict[int, int] = {}
+_scratch = Scratch()
+
+
+def tile_smem_bytes(window: int) -> int:
+    """Shared memory of a block of the tile path at ``window`` taps: the
+    mirror of ``csrc/frontend.cu:geo_of(window).bytes`` (the input tile with
+    its halo, the x-pass buffer, the blurred tile, divisors and taps)."""
+    c = window // 2
+    org = 16 if 4 + c <= 16 else (4 + c + 15) // 16 * 16
+    in_w = (org + 64 + 4 + c + 15) // 16 * 16
+    in_h = 68 + 2 * c
+    return (in_h * in_w + in_h * 72 * 4 + 68 * 72 * 4
+            + (72 + 68 + window + 3) // 4 * 16)
+
+
+def max_tile_window(smem_limit: int) -> int:
+    """The largest odd window whose tile fits ``smem_limit`` bytes of shared
+    memory a block (0 below 3): ``canny_frontend_max_window``'s answer on a
+    card whose opt-in limit is ``smem_limit``."""
+    w = 1
+    while tile_smem_bytes(w + 2) <= smem_limit:
+        w += 2
+    return w if w >= 3 else 0
+
+
+def k1_path(window: int, max_window: int) -> str:
+    """The path K1 takes at ``window`` taps on a card whose tile path takes
+    windows up to ``max_window``: ``"tile"`` (every stage in one block's
+    shared memory) or ``"scratch"`` (the blur through device memory, then
+    the same back half)."""
+    return "tile" if window <= max_window else "scratch"
+
+
+def scratch_floats(b: int, oh: int, ow: int, window: int) -> int:
+    """float32 scratch of one scratch-path launch on ``b`` outputs of ``(oh,
+    ow)``: the divisors, the row blur of ``oh + 4 + 2 (window // 2)`` rows
+    and the floored blur, each ``ow + 4`` wide (``csrc/frontend.cu:
+    large_of``)."""
+    nx, ny = ow + 4, oh + 4
+    return -(-(nx + ny) // 4) * 4 + b * nx * (2 * ny + 2 * (window // 2))
 
 
 def max_window(device: torch.device) -> int:
-    """The largest window the kernel takes on ``device`` (a CUDA device),
-    as its shared memory allows (asked of the library once a device)."""
+    """The largest window K1's tile path takes on ``device`` (a CUDA
+    device), as its shared memory allows (asked of the library once a
+    device); a wider one takes the scratch path."""
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
     if idx not in _max_window:
@@ -58,18 +110,19 @@ def _bounds(thresholds):
     return tuple(threshold_bound(t) for t in thresholds)
 
 
-def _launch(entry: str, args, src: torch.Tensor, taps: torch.Tensor,
-            oh: int, ow: int, thresholds, lead=()):
-    """Check the device and the window, allocate the outputs, launch."""
+def _launch(src: torch.Tensor, taps: torch.Tensor, thresholds, geom,
+            tile_entry, lead=()):
+    """Check the device, allocate the outputs, launch K1 on ``geom = (B,
+    halo, oh, ow, row0, col0, H, W)``: the tile path through
+    ``tile_entry = (name, args)`` where the window allows it, else the
+    scratch path."""
     dev = src.device
     if dev.type != "cuda" or taps.device != dev:
         raise ValueError(f"image on {dev} and taps on {taps.device}: "
-                         "both must be on the same CUDA device")
+                         f"both must be on the same CUDA device")
     window = taps.shape[0]
-    if window > max_window(dev):
-        raise ValueError(f"window {window} does not fit the kernel's shared "
-                         f"memory on {dev}: the largest is {max_window(dev)}")
     taps = taps.contiguous()
+    b, halo, oh, ow, row0, col0, H, W = geom
     if thresholds is None:
         nm = torch.empty((*lead, oh, ow), dtype=torch.int16, device=dev)
         out = (0, 0, 0, nm.data_ptr(), None, None)
@@ -81,12 +134,35 @@ def _launch(entry: str, args, src: torch.Tensor, taps: torch.Tensor,
         # magnitudes lie in [0, 2**13), so a clamped bound decides alike
         mn, mx = (min(max(t, -1), 1 << 13) for t in thresholds)
         out = (1, mn, mx, None, weak.data_ptr(), strong.data_ptr())
+    path = k1_path(window, max_window(dev))
     with _build.device_guard(dev):
-        err = getattr(_build.load("frontend"), entry)(
-            src.data_ptr(), *args, taps.data_ptr(), window, *out,
-            _build.stream_handle(dev))
-    _build.check(err, f"{entry} launch")
-    return nm if thresholds is None else (weak, strong)
+        lib = _build.load("frontend")
+        stream = _build.stream_handle(dev)
+        if path == "tile":
+            name, args = tile_entry
+            err = getattr(lib, name)(src.data_ptr(), *args, taps.data_ptr(),
+                                     window, *out, stream)
+        else:
+            name = "canny_frontend_large"
+            n = scratch_floats(b, oh, ow, window)
+            entry = _scratch.lookup(dev, stream, (b, oh, ow, window))
+            if entry is None:
+                entry = _scratch.create(dev, stream, (b, oh, ow, window), 0)
+                entry["floats"] = torch.empty(n, dtype=torch.float32,
+                                              device=dev)
+            err = lib.canny_frontend_large(
+                src.data_ptr(), *geom, taps.data_ptr(), window, *out,
+                entry["floats"].data_ptr(), n, stream)
+    _build.check(err, f"{name} launch")
+    return path, (nm if thresholds is None else (weak, strong))
+
+
+def _count(path: str, b: int, block: bool = False) -> None:
+    global launches, block_launches, batch_launches, scratch_launches
+    launches += 1
+    block_launches += block
+    batch_launches += b > 1
+    scratch_launches += path == "scratch"
 
 
 def frontend(img: torch.Tensor, taps: torch.Tensor, thresholds=None):
@@ -94,18 +170,19 @@ def frontend(img: torch.Tensor, taps: torch.Tensor, thresholds=None):
 
     ``img``: uint8 ``(H, W)`` or a batch ``(B, H, W)`` whose results stack
     the frames' (one launch on the card for up to ``MAX_BATCH`` frames, a
-    launch a chunk of that many above it).
+    launch a chunk of that many above it; on the scratch path, chunks whose
+    scratch stays within ``SCRATCH_FLOATS``).  Any odd window: up to
+    :func:`max_window` the tile path, above it the scratch path.
     ``thresholds``: optional ``(min_val, max_val)``, compared as JAX
     compares an integer map with them (:func:`_bounds`).
     """
-    global launches, batch_launches
     thresholds = _bounds(thresholds)
     if img.dtype != torch.uint8 or img.dim() not in (2, 3) \
             or img.numel() == 0:
         raise ValueError(f"expected a non-empty uint8 (H, W) image or "
                          f"(B, H, W) batch, got {img.dtype} "
                          f"{tuple(img.shape)}")
-    _check_taps(taps)
+    window = _check_taps(taps)
     if img.device.type == "cpu":
         if img.dim() == 3:
             res = [frontend(f, taps, thresholds) for f in img]
@@ -115,14 +192,18 @@ def frontend(img: torch.Tensor, taps: torch.Tensor, thresholds=None):
         return res.to(torch.int16) if thresholds is None else res
     img = img.contiguous()
     h, w = img.shape[-2:]
-    # a launch a chunk of at most MAX_BATCH frames (the grid's z limit)
+    per_launch = MAX_BATCH
+    if img.dim() == 3 and k1_path(window, max_window(img.device)) \
+            == "scratch":
+        per_launch = max(1, min(MAX_BATCH, SCRATCH_FLOATS
+                                // scratch_floats(1, h, w, window)))
     parts = []
-    for chunk in (img.split(MAX_BATCH) if img.dim() == 3 else (img,)):
+    for chunk in (img.split(per_launch) if img.dim() == 3 else (img,)):
         b = chunk.shape[0] if chunk.dim() == 3 else 1
-        parts.append(_launch("canny_frontend", (b, h, w), chunk, taps, h, w,
-                             thresholds, chunk.shape[:-2]))
-        launches += 1
-        batch_launches += b > 1
+        path, res = _launch(chunk, taps, thresholds, (b, 0, h, w, 0, 0, h, w),
+                            ("canny_frontend", (b, h, w)), chunk.shape[:-2])
+        parts.append(res)
+        _count(path, b)
     if len(parts) == 1:
         return parts[0]
     return (torch.cat(parts) if thresholds is None else
@@ -163,7 +244,6 @@ def frontend_block(window: torch.Tensor, row0: int, col0: int, H: int,
     ``(hl, wl)``, or with ``thresholds`` its packed ``(weak, strong)``
     masks ``(hl, ceil(wl/32))``; pixels past the image are 0 and clear.
     """
-    global launches, block_launches
     thresholds = _bounds(thresholds)
     r = _check_taps(taps) // 2 + 2
     hl, wl = window.shape[-2] - 2 * r, window.shape[-1] - 2 * r
@@ -176,8 +256,9 @@ def frontend_block(window: torch.Tensor, row0: int, col0: int, H: int,
         res = frontend_block_plain(window, row0, col0, H, W,
                                    taps.cpu().numpy(), thresholds)
         return res.to(torch.int16) if thresholds is None else res
-    res = _launch("canny_frontend_block", (hl, wl, r, row0, col0, H, W),
-                  window.contiguous(), taps, hl, wl, thresholds)
-    launches += 1
-    block_launches += 1
+    geom = (1, r, hl, wl, row0, col0, H, W)
+    path, res = _launch(window.contiguous(), taps, thresholds, geom,
+                        ("canny_frontend_block",
+                         (hl, wl, r, row0, col0, H, W)))
+    _count(path, 1, block=True)
     return res

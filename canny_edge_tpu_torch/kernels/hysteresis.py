@@ -63,9 +63,10 @@ def launch_engine(name, scratch, nm, lo, hi, key, prepare):
     The packed masks and the control words come from ``scratch``, per
     device, stream, ``(B, H, W)`` and ``key``; ``prepare(lib)`` runs once
     per entry, raises where the configuration does not fit the card, and
-    returns ``(config, control words)``.  A repeated call costs one
-    dictionary lookup, one ``torch.empty`` (the int16 output) and the
-    launch.  Returns ``(out, entry)``: ``entry["config"]`` is the
+    returns ``(config, control words, *tensors)``: the tensors (buffers the
+    configuration points to) live as long as the entry.  A repeated call
+    costs one dictionary lookup, one ``torch.empty`` (the int16 output) and
+    the launch.  Returns ``(out, entry)``: ``entry["config"]`` is the
     configuration run and ``entry["ints"]`` an int32 view of the counts the
     call leaves behind, which the next call on this entry overwrites.
     """
@@ -78,9 +79,10 @@ def launch_engine(name, scratch, nm, lo, hi, key, prepare):
         entry = scratch.lookup(dev, stream, (b, h, w, *key))
         if entry is None:
             lib = _build.load(f"hysteresis_{name}")
-            config, words = prepare(lib)
+            config, words, *keep = prepare(lib)
             entry = scratch.create(dev, stream, (b, h, w, *key), words)
             entry["config"] = tuple(config)
+            entry["keep"] = keep
             entry["ints"] = entry["ctl"][-2:].view(torch.int32)
             entry["fn"] = getattr(lib, f"canny_{name}")
             entry["ptrs"] = tuple(buffer(entry, m, b * h, w, dev).data_ptr()

@@ -4,7 +4,9 @@
 int16/int32 NMS magnitude ``(H, W)``, or a ``(B, H, W)`` batch, -> int16
 {0, 255}.  A CPU tensor goes to the plain version
 (:func:`..ops.banded.hysteresis_banded`, a frame at a time); a CUDA tensor
-goes to the kernel or raises.  On the card a call is one cooperative
+goes to the kernel or raises.  Any width: rows of up to 8192 columns run a
+band a warp, up to 32768 a band a block, wider ones several words a thread
+(:func:`k4_plan`).  On the card a call is one cooperative
 launch, for a batch too (JAX's ``vmap`` over its sweeps): thresholds,
 packing, sweeps with their ``needs_more`` test, unpacking; nothing is read
 back unless the caller asks for the sweep count.
@@ -22,11 +24,59 @@ from ._scratch import Scratch
 from .hysteresis import check_nm, launch_engine, plain_frames
 
 # kernel launches made by this wrapper (the main path's proof of use): all,
-# and those on a batch of two frames or more
+# those on a batch of two frames or more, and those on rows wider than
+# BLOCK_WORDS words (several words a thread)
 launches = 0
 batch_launches = 0
+wide_launches = 0
 
 _scratch = Scratch()
+
+# words of a row each path takes (csrc/hysteresis_banded.cu): a band a warp
+# up to 32 lanes x MAX_WPL 8 words, a band a block of BLOCK_THREADS 1024
+# threads a word each up to 1024, beyond that several words a thread
+WARP_WORDS = 256
+BLOCK_WORDS = 1024
+
+
+def smem_bytes(band_h: int, w: int) -> int:
+    """Shared memory a block needs for one band of ``band_h`` rows of ``w``
+    columns on the path of its width: the mirror of
+    ``canny_banded_smem_bytes`` (two masks of ``band_h + 2`` rows; flag
+    words on the warp and block-wide paths, a seed row on the wide one; the
+    block scan's 384 static bytes past WARP_WORDS)."""
+    wd, r = cdiv(w, 32), band_h + 2
+    if wd <= BLOCK_WORDS:
+        dyn = 2 * r * wd + 2 * cdiv(r, 32)
+    else:
+        dyn = 2 * r * wd + wd
+    return 4 * dyn + (0 if wd <= WARP_WORDS else 3 * 32 * 4)
+
+
+def k4_plan(w: int, band_h: int, asked: bool, smem_limit: int):
+    """``(path, band_h)``: the path K4 takes for rows of ``w`` columns and
+    the band it runs, on a card that gives a block ``smem_limit`` bytes.
+
+    Paths: ``"warp"`` (a band a warp), ``"block"`` (a band a block, a word a
+    thread), ``"wide"`` (several words a thread, the band in shared memory)
+    and ``"wide-global"`` (the same, the band's rows in device memory).  A
+    default band (not ``asked``) is halved while it does not fit; on the
+    warp and block paths a band that still does not fit raises, past
+    BLOCK_WORDS it runs from device memory at the band first chosen.
+    """
+    fit = band_h
+    while not asked and fit > 1 and smem_bytes(fit, w) > smem_limit:
+        fit = cdiv(fit, 2)
+    wd = cdiv(w, 32)
+    fits = smem_bytes(fit, w) <= smem_limit
+    if wd > BLOCK_WORDS:
+        return ("wide", fit) if fits else ("wide-global", band_h)
+    if not fits:
+        raise ValueError(f"a band of {fit} rows x {w} columns needs "
+                         f"{smem_bytes(fit, w)} bytes of shared memory a "
+                         f"block; this device allows {smem_limit}: pass a "
+                         f"smaller band_h")
+    return ("warp" if wd <= WARP_WORDS else "block"), fit
 
 
 def _run(nm, min_val, max_val, band_h, group):
@@ -34,7 +84,7 @@ def _run(nm, min_val, max_val, band_h, group):
     and, on the card, also the most rounds of a band in a sweep, the rounds
     summed and the bands run, as an int32 device view that nothing has read
     yet; ``band_h`` is the band that ran."""
-    global launches, batch_launches
+    global launches, batch_launches, wide_launches
     b, h, w = check_nm(nm)
     # the kernel and the plain version compare the same integers
     min_val, max_val = (threshold_bound(t, nm.dtype)
@@ -47,24 +97,21 @@ def _run(nm, min_val, max_val, band_h, group):
         return out, [sweeps], band_h
 
     def prepare(lib):
-        if w > lib.canny_banded_max_width():
-            raise ValueError(f"width {w} exceeds the kernel's maximum of "
-                             f"{lib.canny_banded_max_width()}")
-        fit, limit = band_h, lib.canny_banded_smem_limit()
-        while (not asked and fit > 1
-               and lib.canny_banded_smem_bytes(fit, w) > limit):
-            fit = cdiv(fit, 2)
-        need = lib.canny_banded_smem_bytes(fit, w)
-        if need > limit:
-            raise ValueError(f"a band of {fit} rows x {w} columns needs "
-                             f"{need} bytes of shared memory a block; this "
-                             f"device allows {limit}: pass a smaller band_h")
-        return (fit,), lib.canny_banded_scratch_words()
+        _, fit = k4_plan(w, band_h, asked, lib.canny_banded_smem_limit())
+        words = lib.canny_banded_row_words(b, h, w, fit)
+        if words < 0:
+            raise ValueError(f"K4 cannot plan a call on {b} x {h} x {w} at "
+                             f"band_h {fit}")
+        # the band rows in device memory (none where the band fits)
+        rows = torch.empty(max(words, 1), dtype=torch.int32, device=nm.device)
+        return ((fit, rows.data_ptr(), words), lib.canny_banded_scratch_words(),
+                rows)
 
     out, entry = launch_engine("banded", _scratch, nm, min_val, max_val,
                                (band_h, asked), prepare)
     launches += 1
     batch_launches += b > 1
+    wide_launches += cdiv(w, 32) > BLOCK_WORDS
     return out, entry["ints"], entry["config"][0]
 
 
@@ -79,7 +126,9 @@ def hysteresis_banded(nm: torch.Tensor, min_val: int, max_val: int, *,
     never the result, and ``group`` (a TPU VMEM grouping) is only
     validated.  On the card a default band that does not fit a block's
     shared memory (below 512 rows JAX takes the whole image) is halved
-    until it does; a ``band_h`` that was asked for and does not fit raises.
+    until it does; up to 32768 columns a ``band_h`` that was asked for and
+    does not fit raises, above them a band that does not fit runs from
+    device memory (:func:`k4_plan`): any width runs.
     ``return_sweeps``: also return the number of sweeps, of a batch the most
     of any frame (on the card that reads one word back, the call's only
     host sync).

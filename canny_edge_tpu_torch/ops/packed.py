@@ -7,7 +7,8 @@ never join an edge.
 PyTorch has no ``>>``, ``<<`` or ``~`` for uint32 tensors, and int32 ``>>``
 is arithmetic, so the flood computes on int64 tensors holding the word
 values in ``[0, 2**32)``.  The words become ``torch.uint32`` only at the API
-edge (:func:`to_words` / :func:`from_words`), through an int32 view.
+edge (:func:`to_words` / :func:`from_words`), through an int32 view; the
+word helpers take either (:func:`_on_words`).
 
 The flood is the one of ``canny_edge_tpu/ops/packed.py``: rounds of
 ``inner_dilate`` 8-connected dilations masked by the weak mask, then
@@ -18,6 +19,8 @@ connected to a strong one, whatever the round structure.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -95,6 +98,25 @@ def unpack_edges_np(packed: np.ndarray, w: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # packed shifts over int64 word values
 # ---------------------------------------------------------------------------
+# The word helpers below (shl1 ... vflood) take JAX's words: uint32 tensors,
+# as pack_mask makes them, in and out.  They compute on int64 word values,
+# and take and return those too, which is what the port's own floods pass.
+
+def _on_words(fn):
+    """``fn`` on int64 word values, called with uint32 words: every uint32
+    tensor argument goes in as int64 values and, if any did, the result
+    comes back as uint32 words."""
+
+    @functools.wraps(fn)
+    def call(*args, **kw):
+        words = [isinstance(a, torch.Tensor) and a.dtype == torch.uint32
+                 for a in args]
+        out = fn(*(from_words(a) if u else a for a, u in zip(args, words)),
+                 **kw)
+        return to_words(out) if any(words) else out
+
+    return call
+
 
 def _shift_words(e, k: int, axis: int):
     """Shift along ``axis`` by ``k`` (>0: toward higher index), zero fill."""
@@ -118,21 +140,29 @@ def _word_right(e, k: int = 1):
     return _shift_words(e, -k, -1)
 
 
+@_on_words
 def shl1(e):
-    """Shift the image one column toward higher column index."""
+    """Shift the image one column toward higher column index (uint32 words
+    in, uint32 out; int64 word values in, int64 out)."""
     return ((e << 1) & _M32) | (_word_left(e) >> 31)
 
 
+@_on_words
 def shr1(e):
+    """Shift the image one column toward lower column index (uint32 words
+    in, uint32 out; int64 word values in, int64 out)."""
     return (e >> 1) | ((_word_right(e) << 31) & _M32)
 
 
+@_on_words
 def dilate_packed(e, weak):
-    """One 8-connected dilation step masked by weak (separable OR)."""
+    """One 8-connected dilation step masked by weak (separable OR); uint32
+    words in, uint32 out; int64 word values in, int64 out."""
     h = e | shl1(e) | shr1(e)
     return weak & (h | _shift_words(h, -1, -2) | _shift_words(h, 1, -2))
 
 
+@_on_words
 def strict_fix_packed(new, prev, weak, row0: int = 0, word0: int = 0):
     """Strict-reference correction of global pixel (0, 1) after a dilation.
 
@@ -142,7 +172,8 @@ def strict_fix_packed(new, prev, weak, row0: int = 0, word0: int = 0):
     diagonally, so only dilations need this fix.  ``row0`` / ``word0``:
     where global row 0 and word 0 lie in the arrays (``(1, 1)`` on a block
     extended by a halo of one row and one word); a row below the arrays
-    reads as 0.  Needs the image to have a pixel (0, 1).
+    reads as 0.  Needs the image to have a pixel (0, 1).  uint32 words in,
+    uint32 out; int64 word values in, int64 out.
     """
     p0 = prev[..., row0, word0]
     p1 = (prev[..., row0 + 1, word0] if row0 + 1 < prev.shape[-2]
@@ -162,8 +193,10 @@ def strict_fix_packed(new, prev, weak, row0: int = 0, word0: int = 0):
 # b = "weak here"; composition over a span doubles as
 #   A' = A | (B & shift_s(A)),  B' = B & shift_s(B).
 
+@_on_words
 def hflood(e, weak, width: int):
-    """Flood edges along entire horizontal weak runs (both directions)."""
+    """Flood edges along entire horizontal weak runs (both directions);
+    uint32 words in, uint32 out; int64 word values in, int64 out."""
     al, bl = e, weak
     ar, br = e, weak
     s = 1
@@ -185,8 +218,10 @@ def hflood(e, weak, width: int):
     return e | (weak & (al | ar))
 
 
+@_on_words
 def vflood(e, weak, height: int):
-    """Flood edges along entire vertical weak runs (both directions)."""
+    """Flood edges along entire vertical weak runs (both directions);
+    uint32 words in, uint32 out; int64 word values in, int64 out."""
     au, bu = e, weak
     ad, bd = e, weak
     k = 1

@@ -195,7 +195,8 @@ def _bound(nbytes: int, ops: int) -> dict:
 
 
 def kernel_bounds(hw=(1080, 1920), window: int = 11, block=(1080, 960),
-                  extended=(1082, 1024), batch=None) -> dict[str, dict]:
+                  extended=(1082, 1024), batch=None, scratch_window: int = 301,
+                  wide=(64, 131072)) -> dict[str, dict]:
     """``{kernel: {"bound_ms", "bound_by"}}``: each kernel's least time on
     the H100 SXM at the shapes ``chip_smoke.py`` runs it, from the hand
     model (each input byte read once, each output byte written once).
@@ -207,12 +208,20 @@ def kernel_bounds(hw=(1080, 1920), window: int = 11, block=(1080, 960),
     and K4 (int16 map in and out).  ``block``: a ``(hl, wl)`` block of K1's
     block mode, read with a halo of ``window // 2 + 2``.  ``extended``: the
     ``(rows, columns)`` of the halo-extended masks K2 floods with the strict
-    fix at ``quirk_rw=(1, 1)``.
+    fix at ``quirk_rw=(1, 1)``.  ``scratch_window``: the window of K1's
+    scratch path (``frontend_scratch``) on the frame ``hw``; ``wide``: the
+    ``(rows, columns)`` of K4's wide path (``hysteresis_banded_wide``).  The
+    function bounds them, not the path: the bytes and the hand model's
+    operations are those of the same function at that window or width.
     """
     h, w = hw
     wd = -(-w // 32)
     k2_ops = K2_OPS_PER_WORD * h * wd
-    engine = (4 * h * w, NM_INT16_OPS_PER_PX * h * w + k2_ops)
+
+    def engine(rows, cols):     # K3 / K4: int16 map in, int16 edges out
+        return (4 * rows * cols, NM_INT16_OPS_PER_PX * rows * cols
+                + K2_OPS_PER_WORD * rows * -(-cols // 32))
+
     hl, wl = block
     r = window // 2 + 2
     eh, ewd = extended[0], extended[1] // 32
@@ -222,11 +231,14 @@ def kernel_bounds(hw=(1080, 1920), window: int = 11, block=(1080, 960),
         "hysteresis_packed": (3 * h * wd * 4, k2_ops),
         "hysteresis_packed_nm_int16": (4 * h * w,
                                        k2_ops + NM_INT16_OPS_PER_PX * h * w),
-        "hysteresis_dilate": engine,
-        "hysteresis_banded": engine,
+        "hysteresis_dilate": engine(h, w),
+        "hysteresis_banded": engine(h, w),
         "frontend_block": (
             (hl + 2 * r) * (wl + 2 * r) + 2 * hl * (wl // 32) * 4,
             hl * wl * k1_ops_per_px(window)),
         "hysteresis_packed_quirk": (3 * eh * ewd * 4,
                                     K2_OPS_PER_WORD * eh * ewd),
+        "frontend_scratch": (h * w + 2 * h * wd * 4,
+                             h * w * k1_ops_per_px(scratch_window)),
+        "hysteresis_banded_wide": engine(*wide),
     }.items()}

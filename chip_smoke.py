@@ -7,8 +7,10 @@ onto the card, K1 -> K2 a frame, PNGs out), the stage path and
 ``SobelTorch`` on the card, the multi-device path (``ShardedCanny``: K1 in
 block mode -> the distributed K2 flood) over meshes on the one card,
 the port's headline bench (``bench_torch.py``: ``canny_fn``'s three
-backends at 1080p, with the roofline of their stages), the batch path, and
-a seeded sweep of every kernel mode over random geometry (phase 14).
+backends at 1080p, with the roofline of their stages), the batch path, a
+seeded sweep of every kernel mode over random geometry (phase 14), and K1
+and K4 past their former limits (phase 15: windows above 263 taps, rows
+wider than 32768 columns).
 
     python3 chip_smoke.py
 
@@ -117,7 +119,19 @@ Phases (any failure exits non-zero and prints no result):
      against their plain versions, the functional entry points against the
      CPU and ``golden``, the model classes, which truncate, against the
      CPU); printed on a ``sweep:`` line (cases by kernel and mode,
-     launches, threshold cases, mismatches, seconds).
+     launches, threshold cases, mismatches, seconds);
+ 15. capacity (``capacity_phase``): K1 at windows 263 (the tile path's
+     last on the H100), 265, 301 and 601 and K4 at 32768, 32769, 40000,
+     131072 and 524288 columns.  The slice's path with its launch counts
+     from 0 (``CannyTorch`` ``fused``, ``canny_fn`` ``pallas`` and
+     ``ShardedCanny`` static on an in-process 1x2x2 mesh at each window on
+     a 1080p ``capacity_frame``, ``canny_fused`` ``banded`` on a 96x40000
+     frame: K1's scratch path in frame and block mode and K4's wide path
+     run) against the plain pipeline; K1 in NMS, threshold, batch (3 at
+     257x333) and block mode and K4 (a serpentine and a random map, edges
+     and sweeps at the band that ran) against their plain versions,
+     ``canny_fn`` against ``golden``; 0 mismatches; device ms by window and
+     width, printed on a ``capacity:`` line.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Every measured number also goes to
 standard error as one ``report:`` JSON line and to
@@ -1893,6 +1907,297 @@ def sweep_phase(dev, cfgs=None, workers=6, chunked=(65537, 1, 3)):
     return rep
 
 
+# Phase 15: K1 past its tile path's last window (263 taps on the H100) and K4
+# past the block-wide path's 32768 columns
+CAPACITY_SIGMAS = {263: 43.66, 265: 43.67, 301: 50.0, 601: 100.0}
+CAPACITY_WIDTHS = ((130, 32768), (130, 32769), (96, 40000), (64, 131072),
+                   (64, 524288))
+CAP_MN, CAP_MX = 1, 3      # a 601-tap blur leaves steps of a few levels
+
+
+def capacity_frame(h, w, seed=0):
+    """The headline frame with a disc of 255 about its top-left corner and
+    one of 0 about its bottom-right: edges that a blur of 601 taps still
+    leaves (the headline frame alone keeps 20 NMS pixels at 1080p)."""
+    img = make_image(h, w, seed=seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img[np.hypot(xx, yy) < min(h, w) / 2] = 255
+    img[np.hypot(xx - w, yy - h) < min(h, w) / 3] = 0
+    return img
+
+
+def capacity_phase(dev, time_ms, device_ms, hw=SIZES["1080p"],
+                   odd=(257, 333), widths=CAPACITY_WIDTHS,
+                   wide_frame=(96, 40000)):
+    """Phase 15: every frame JAX computes, on the card.
+
+    The slice's path, with the launch counts from 0 just before and read
+    just after: ``CannyTorch`` (``fused``), ``canny_fn`` on ``pallas`` and
+    ``ShardedCanny``'s static engine on an in-process 1x2x2 mesh at each
+    window of ``CAPACITY_SIGMAS`` on a ``capacity_frame`` of ``hw``, and
+    ``canny_fused(hysteresis_impl="banded")`` on a ``wide_frame``: K1's
+    scratch path, in frame and block mode, and K4's wide path must run,
+    and every result equals the plain pipeline on the card.  Then each
+    kernel against its plain version on the card: K1 at each window in NMS
+    and threshold mode at ``hw``, on a batch of 3 at ``odd`` and in block
+    mode; ``canny_fn`` on ``fused`` and ``pallas`` against the port's
+    ``golden`` at ``odd``; K4 on a serpentine and a random map at each of
+    ``widths``, edges and sweeps at the band that ran.  Times: K1 at ``hw``
+    and K4 at each width, by CUDA events and torch.profiler, with the plain
+    versions'.  0 mismatches.  Returns ``(report, kernel entries of the
+    kernels line)``."""
+    import torch
+
+    from canny_edge_tpu_torch import CannyTorch, golden
+    from canny_edge_tpu_torch.kernels import frontend as kfe
+    from canny_edge_tpu_torch.kernels import hysteresis_packed as khp
+    from canny_edge_tpu_torch.kernels import hysteresis_v2 as k4
+    from canny_edge_tpu_torch.kernels.fused import canny_fused
+    from canny_edge_tpu_torch.models.canny import canny_fn
+    from canny_edge_tpu_torch.ops import banded as Bd
+    from canny_edge_tpu_torch.ops import packed as P
+    from canny_edge_tpu_torch.ops import window as Wn
+    from canny_edge_tpu_torch.ops.gaussian import gaussian_kernel
+    from canny_edge_tpu_torch.parallel import ShardedCanny, make_mesh
+    from canny_edge_tpu_torch.utils.roofline import kernel_bounds
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def u32eq(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    def plain_edges(img, kern, mn, mx):
+        return P.hysteresis_packed(Wn.frontend_nm(img, kern), mn, mx)
+
+    t0 = time.perf_counter()
+    rep = {"mismatches": 0, "cases": 0}
+
+    def expect(cond, what):
+        rep["cases"] += 1
+        if not cond:
+            rep["mismatches"] += 1
+            log(f"capacity mismatch: {what}")
+
+    kerns = {win: gaussian_kernel(s) for win, s in CAPACITY_SIGMAS.items()}
+    check(all(len(k) == win for win, k in kerns.items()),
+          f"capacity windows {[len(k) for k in kerns.values()]}")
+    frame = capacity_frame(*hw)
+    img = torch.from_numpy(frame).to(dev)
+    mesh = make_mesh([dev] * 4, y=2, x=2)
+    wide_np = make_image(*wide_frame, seed=5)
+    taps14 = torch.from_numpy(gaussian_kernel(SIGMA)).to(dev)
+
+    # ---- the slice's path, counts from 0 ----
+    shard = {win: ShardedCanny(mesh, s, hw) for win, s in
+             CAPACITY_SIGMAS.items()}
+    check(all(m.engine == "static" for m in shard.values()),
+          "ShardedCanny at a capacity window is not on its static engine")
+    for mod, names in ((kfe, ("launches", "block_launches",
+                              "scratch_launches")),
+                       (khp, ("launches",)), (k4, ("launches",
+                                                   "wide_launches"))):
+        for n in names:
+            setattr(mod, n, 0)
+    plain_calls = dict(P.calls)
+    outs = {}
+    for win, s in CAPACITY_SIGMAS.items():
+        outs["fused", win] = CannyTorch(s, device=dev)(frame, CAP_MN,
+                                                       CAP_MX)
+        outs["pallas", win] = canny_fn(img, CAP_MN, CAP_MX, backend="pallas",
+                                       kernel_vals=kerns[win])
+    outs["banded_wide"] = canny_fused(torch.from_numpy(wide_np).to(dev), MN,
+                                      MX, kernel_vals=taps14,
+                                      hysteresis_impl="banded")
+    sync()
+    # the plain pack and unpack calls of the single-card paths (the mesh's
+    # glue unpacks each block's edges with the plain unpack, by design)
+    plain_diff = {k: P.calls[k] - plain_calls[k] for k in P.calls}
+    for win in CAPACITY_SIGMAS:
+        outs["sharded", win] = shard[win](frame[None], CAP_MN, CAP_MX)[0]
+    sync()
+    counts = {"frontend": kfe.launches, "frontend_block": kfe.block_launches,
+              "frontend_scratch": kfe.scratch_launches,
+              "hysteresis_packed": khp.launches,
+              "hysteresis_banded": k4.launches,
+              "hysteresis_banded_wide": k4.wide_launches}
+    log(f"capacity path launches: {counts}")
+    if dev.type == "cuda":
+        over = sum(win > kfe.max_window(dev) for win in CAPACITY_SIGMAS)
+        nwin = len(CAPACITY_SIGMAS)
+        check(over == 3 and counts["frontend_scratch"] == 6 * over
+              and counts["frontend_block"] == 4 * nwin
+              and counts["hysteresis_banded_wide"] == 1
+              and counts["hysteresis_banded"] == 1,
+              f"the capacity path launched {counts}: want 6 scratch-path "
+              f"launches of K1 a window past {kfe.max_window(dev)} taps (1 "
+              f"fused, 1 pallas, 4 blocks) and one wide K4")
+        check(not any(plain_diff.values()),
+              f"the capacity path called a plain pack/unpack: {plain_diff}")
+    edge_px = {}
+    for win in CAPACITY_SIGMAS:
+        want = plain_edges(img, kerns[win], CAP_MN, CAP_MX)
+        edge_px[win] = int((want == 255).sum())
+        expect(edge_px[win] > 0, f"no edges at window {win}")
+        for run in ("fused", "pallas", "sharded"):
+            got = outs[run, win]
+            expect(got.dtype == torch.int16 and torch.equal(got, want),
+                   f"{run} at window {win} differs from the plain pipeline")
+    want = plain_edges(torch.from_numpy(wide_np).to(dev), gaussian_kernel(SIGMA),
+                       MN, MX)
+    expect(torch.equal(outs["banded_wide"], want)
+           and int((want == 255).sum()) > 0,
+           f"banded at {wide_frame} differs from the plain pipeline")
+    rep["path"] = {"launches": counts, "edge_px": edge_px,
+                   "s": time.perf_counter() - t0}
+
+    # ---- K1 at each window against its plain version ----
+    t1 = time.perf_counter()
+    k1_err, k1_times = 0, {}
+    small = capacity_frame(*odd)
+    batch = torch.from_numpy(np.stack([capacity_frame(*odd, seed=s)
+                                       for s in range(3)])).to(dev)
+    for win, kern in kerns.items():
+        taps = torch.from_numpy(kern).to(dev)
+        t = time.perf_counter()
+        ref = Wn.frontend_nm(img, kern)
+        sync()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        nm = kfe.frontend(img, taps)
+        weak, strong = kfe.frontend(img, taps, (CAP_MN, CAP_MX))
+        sync()
+        k1_err = max(k1_err, int((nm.to(torch.int32) - ref).abs().max()))
+        expect(torch.equal(nm.to(torch.int32), ref),
+               f"K1 nm at window {win}, {hw}")
+        expect(u32eq(weak, P.pack_mask(ref >= CAP_MN))
+               and u32eq(strong, P.pack_mask(ref >= CAP_MX)),
+               f"K1 masks at window {win}, {hw}")
+        bnm = kfe.frontend(batch, taps)
+        bw, bs = kfe.frontend(batch, taps, (CAP_MN, CAP_MX))
+        sync()
+        for i in range(batch.shape[0]):
+            r = Wn.frontend_nm(batch[i], kern)
+            expect(torch.equal(bnm[i].to(torch.int32), r)
+                   and u32eq(bw[i], P.pack_mask(r >= CAP_MN))
+                   and u32eq(bs[i], P.pack_mask(r >= CAP_MX)),
+                   f"K1 batch frame {i} at window {win}, {odd}")
+        # block mode: an interior 1x2x2 block's window and the corner's
+        r = win // 2 + 2
+        pad = torch.nn.functional.pad(img, (r, r, r, r))
+        for row0, col0, hl, wl in ((0, 0, hw[0] // 2, hw[1] // 2),
+                                   (hw[0] // 4, hw[1] // 4, 300, 512)):
+            win_u8 = pad[row0:row0 + hl + 2 * r, col0:col0 + wl + 2 * r]
+            got = kfe.frontend_block(win_u8.contiguous(), row0, col0, *hw,
+                                     taps)
+            gotm = kfe.frontend_block(win_u8.contiguous(), row0, col0, *hw,
+                                      taps, (CAP_MN, CAP_MX))
+            refb = Wn.frontend_block(win_u8, row0, col0, *hw, kern)
+            refm = Wn.frontend_block(win_u8, row0, col0, *hw, kern,
+                                     (CAP_MN, CAP_MX))
+            sync()
+            expect(torch.equal(got.to(torch.int32), refb)
+                   and all(u32eq(a, b) for a, b in zip(gotm, refm)),
+                   f"K1 block ({row0}, {col0}) at window {win}")
+        # canny_fn on both backends against golden on a small frame
+        gold = golden.canny(small, CAPACITY_SIGMAS[win], CAP_MN, CAP_MX)
+        expect((gold == 255).any(), f"golden has no edges at window {win}")
+        for backend in ("fused", "pallas"):
+            got = canny_fn(torch.from_numpy(small).to(dev), CAP_MN, CAP_MX,
+                           backend=backend, kernel_vals=kern)
+            expect(np.array_equal(got.cpu().numpy(), gold),
+                   f"canny_fn {backend} at window {win} differs from golden")
+        fn = (lambda taps=taps: kfe.frontend(img, taps, (CAP_MN, CAP_MX)))
+        by = device_ms(fn)
+        kb = kernel_bounds(hw=hw, window=win)["frontend"]
+        k1_times[win] = {
+            "path": kfe.k1_path(win, kfe.max_window(dev))
+            if dev.type == "cuda" else "plain",
+            "ms": time_ms(fn, 10, 3),
+            "device_ms": sum(by.values()) if by else "not measured",
+            "device_by_kernel": by, "plain_ms": plain_ms,
+            "bound_ms": kb["bound_ms"], "bound_by": kb["bound_by"]}
+    rep["k1"] = {"times": k1_times, "max_abs_err": k1_err,
+                 "s": time.perf_counter() - t1}
+    log(f"capacity K1: {k1_times}")
+
+    # ---- K4 at each width against its plain version ----
+    t1 = time.perf_counter()
+    rng = np.random.default_rng(15)
+    k4_err, k4_times = 0, {}
+    for h, w in widths:
+        for kind in ("snake", "random"):
+            nm = torch.from_numpy(snake_nm(h, w) if kind == "snake"
+                                  else random_nm(rng, h, w)).to(dev)
+            lo, hi = ENGINE_THRESHOLDS[kind]
+            out, st = k4.banded_stats(nm, lo, hi)
+            sync()
+            t = time.perf_counter()
+            ref, sweeps = Bd.hysteresis_banded(nm, lo, hi, band_h=st["band_h"],
+                                               return_sweeps=True)
+            sync()
+            plain_ms = (time.perf_counter() - t) * 1e3
+            k4_err = max(k4_err, int((out - ref).abs().max()) // 255)
+            expect(torch.equal(out, ref) and st["sweeps"] == sweeps
+                   and int((ref == 255).sum()) > 0,
+                   f"K4 {kind} {h}x{w}: sweeps {st['sweeps']} against "
+                   f"{sweeps}, band {st['band_h']}")
+            if kind == "random":
+                fn = (lambda nm=nm, lo=lo, hi=hi:
+                      k4.hysteresis_banded(nm, lo, hi))
+                by = device_ms(fn)
+                kb = kernel_bounds(hw=(h, w))["hysteresis_banded"]
+                k4_times[w] = {
+                    "h": h, "band_h": st["band_h"], "sweeps": st["sweeps"],
+                    "rounds_max": st.get("rounds_max"),
+                    "path": k4.k4_plan(w, st["band_h"], True,
+                                       torch.cuda.get_device_properties(
+                                           dev).shared_memory_per_block_optin)
+                    [0] if dev.type == "cuda" else "plain",
+                    "ms": time_ms(fn, 5, 3),
+                    "device_ms": sum(by.values()) if by else "not measured",
+                    "device_by_kernel": by, "plain_ms": plain_ms,
+                    "bound_ms": kb["bound_ms"], "bound_by": kb["bound_by"]}
+    rep["k4"] = {"times": k4_times, "max_abs_err": k4_err,
+                 "s": time.perf_counter() - t1}
+    log(f"capacity K4: {k4_times}")
+    rep["s"] = time.perf_counter() - t0
+    check(rep["mismatches"] == 0,
+          f"capacity: {rep['mismatches']} mismatches of {rep['cases']}")
+
+    kb = kernel_bounds()
+    t301, t131 = k1_times[301], k4_times[131072]
+    entries = [
+        {"name": "frontend_scratch", "route": "cuda",
+         "source": "canny_edge_tpu_torch/kernels/csrc/frontend.cu",
+         "replaces": "canny_edge_tpu/kernels/frontend.py:153",
+         "launches": counts["frontend_scratch"], "max_abs_err": k1_err,
+         "ms": t301["ms"], "plain_ms": t301["plain_ms"],
+         "bound_ms": kb["frontend_scratch"]["bound_ms"],
+         "bound_by": kb["frontend_scratch"]["bound_by"], "library_ms": None,
+         "match": True, "shape": f"{hw[0]}x{hw[1]}, window 301",
+         "device_ms": t301["device_ms"],
+         "ms_by_window": {w: t["ms"] for w, t in k1_times.items()},
+         "device_ms_by_window": {w: t["device_ms"]
+                                 for w, t in k1_times.items()}},
+        {"name": "hysteresis_banded_wide", "route": "cuda",
+         "source": "canny_edge_tpu_torch/kernels/csrc/hysteresis_banded.cu",
+         "replaces": "canny_edge_tpu/kernels/hysteresis_v2.py:70",
+         "launches": counts["hysteresis_banded_wide"],
+         "max_abs_err": k4_err, "ms": t131["ms"],
+         "plain_ms": t131["plain_ms"],
+         "bound_ms": kb["hysteresis_banded_wide"]["bound_ms"],
+         "bound_by": kb["hysteresis_banded_wide"]["bound_by"],
+         "library_ms": None, "match": True,
+         "shape": "64x131072 random NMS map",
+         "device_ms": t131["device_ms"],
+         "ms_by_width": {w: t["ms"] for w, t in k4_times.items()},
+         "device_ms_by_width": {w: t["device_ms"]
+                                for w, t in k4_times.items()}},
+    ]
+    return rep, entries
+
+
 def check_bounds(kernels):
     """Every ``bound_ms`` of the ``kernels`` line is
     ``utils.roofline.kernel_bounds``': a batch row's (``"batch"``) that of
@@ -2694,6 +2999,22 @@ def main():
         "threshold_kinds": sw["threshold_kinds"],
         "mismatches": sw["mismatches"],
         "s": sw["s"]}), flush=True)
+    # ---- 15. capacity: K1 past its tile path, K4 past 32768 columns ----
+    report["capacity"], cap_kernels = capacity_phase(dev, time_ms, device_ms)
+    check_bounds(cap_kernels)
+    kernels += cap_kernels
+    cap = report["capacity"]
+    print("capacity: " + json.dumps({
+        "card": card, "launches": cap["path"]["launches"],
+        "cases": cap["cases"], "mismatches": cap["mismatches"],
+        "k1_by_window": {w: {k: t[k] for k in ("path", "ms", "device_ms",
+                                               "plain_ms", "bound_ms")}
+                         for w, t in cap["k1"]["times"].items()},
+        "k4_by_width": {w: {k: t[k] for k in ("h", "path", "band_h",
+                                              "sweeps", "ms", "device_ms",
+                                              "plain_ms", "bound_ms")}
+                        for w, t in cap["k4"]["times"].items()},
+        "s": cap["s"]}), flush=True)
     report["total_s"] = time.perf_counter() - t_run
     log("report: " + json.dumps(report))
     out_dir = os.path.join(ROOT, "chiprun_out")     # listed in .gitignore

@@ -486,9 +486,11 @@ def test_engines_card_capacity(cuda_device):
     out, st = k4.banded_stats(tall, 30, 90)
     assert torch.equal(out, banded.hysteresis_banded(tall, 30, 90))
     assert st["band_h"] == 250
-    # the widest image the kernel takes
+    # the widest image of the block-wide path, and one word a row past it:
+    # the wide path (several words a thread), where K4 used to refuse
     wide = torch.from_numpy(_sparse_nm(40, 32768, seed=4)).to(cuda_device)
     _card_check(wide, 10, 100, tiles=[(128, 512)], bands=[None])
-    with pytest.raises(ValueError, match="exceeds"):
-        k4.hysteresis_banded(torch.zeros((8, 32800), dtype=torch.int16,
-                                         device=cuda_device), 1, 2)
+    wider = torch.from_numpy(_sparse_nm(8, 32800, seed=5)).to(cuda_device)
+    before = k4.wide_launches
+    _card_check(wider, 10, 100, tiles=[(128, 512)], bands=[None, 1])
+    assert k4.wide_launches == before + 2
