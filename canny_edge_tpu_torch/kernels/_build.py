@@ -40,6 +40,7 @@ SIGNATURES = {
         "canny_frontend_large": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I,
                                  _I, _I, _I, _P, _P, _P, _P, _L, _P],
         "canny_frontend_max_window": [],
+        "canny_frontend_smem_bytes": [_I],
     },
     "hysteresis_packed": {
         "canny_hysteresis_packed": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I,

@@ -13,19 +13,24 @@
 // be fused into an FMA: the rate at which an SM dispatches instructions
 // bounds it, so the design is about few instructions per pixel.
 //
-// Design: one block of 256 threads per 64x64 output tile, every stage in
-// shared memory, no intermediate in device memory, for every window whose
-// tile fits a block's shared memory (263 taps on the H100); a wider window
-// takes the scratch path (canny_frontend_large, below): the blur through
-// device memory, then the same back half on tiles of it.
+// Three paths, chosen by the window alone; all give the same bits:
+//   tile     windows 3..103 (sigma <= 17; the headline sigma 1.4 is 11):
+//            one block of 256 threads a 64x64 output tile, every stage in
+//            shared memory, the window a template parameter (this section);
+//            its x-pass runs over 68 + 2c rows for 64 outputs, which the
+//            ring path's costs overtake past 103 taps on the H100;
+//   ring     windows from 105 taps up to what its shared memory holds (613
+//            on the H100): a block streams a 64-column strip of a run of
+//            rows through a ring of x-pass rows, so that a strip's x-pass
+//            rows are computed once a run, not once a 64-row tile (the
+//            section "Wide windows" below);
+//   scratch  any wider window (canny_frontend_large, the last section): the
+//            blur through device memory, then the same back half on tiles.
+// The tile path:
 //   load    the uint8 tile with its halo (window/2 + 2 texels), zero filled
 //           off the image; 16-byte cp.async where the row address allows
 //           (W a multiple of 16, chunk inside the image), else byte loads;
-//   x-pass  the window is a template parameter (3..15; one generic
-//           instantiation takes any other odd window, its halo, shared tile
-//           and divisor buffer sized from the window at launch, up to what
-//           a block's shared memory holds).  A thread loads its row segment
-//           as 32-bit words,
+//   x-pass  a thread loads its row segment as 32-bit words,
 //           converts each byte once and emits 8 adjacent outputs from a
 //           register window, taps in registers, fully unrolled;
 //   y-pass  a thread emits 4 outputs down a column from window + 3 floats
@@ -89,12 +94,13 @@ constexpr int SM_H = TILE_H + 4;     // blurred rows [row0 - 2, row0 + 66)
 constexpr int MAG_H = TILE_H + 2;    // magnitude rows [row0 - 1, row0 + 65)
 constexpr int MAG_W = TILE_W + 4;    // magnitude cols [col0 - 3, col0 + 65)
 constexpr int MAG_OOB = -4;          // off-image magnitude: -1 with direction 0
+constexpr int TILE_MAX = 103;        // the tile path's widest window
 
 static_assert(XW % XR == 0 && SM_H % YR == 0 && MAG_W % 4 == 0, "geometry");
 
-// The shared-memory layout of a window: its half-width c, the input tile with
-// its halo, the x-pass buffer (the magnitudes reuse it), the blurred tile and
-// the divisors and taps.
+// The tile path's shared-memory layout of a window: its half-width c, the
+// input tile with its halo, the x-pass buffer (the magnitudes reuse it), the
+// blurred tile and the divisors (and room for the taps).
 struct Geo {
   int c, org, in_w, in_h, in_bytes, tmp_bytes, sm_bytes, bytes;
 };
@@ -156,28 +162,41 @@ struct Frame {
   int sh, sw, halo, oh, ow, row0, col0, H, W, B;
 };
 
-// The back half of a tile: Sobel, magnitude and direction, NMS and the
-// output, from the floored blur `sm` (rows [row0-2, row0+66) x columns
-// [col0-4, col0+68) of the image, XW floats a row) in shared memory; `mag`
-// is shared scratch of MAG_H x MAG_W int16.  Every thread of the block calls
-// it, after a barrier that publishes `sm`.
+// bar.sync / bar.arrive on named barrier `id` (1..15) of `n` threads
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" : : "r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" : : "r"(id), "r"(n) : "memory");
+}
+
+// The back half of a TH x 64 tile whose first output pixel is (ty0, tx0)
+// of the output block: Sobel, magnitude and direction, NMS and the output,
+// from the floored blur `sm` (rows [row0-2, row0+TH+2) x columns [col0-4,
+// col0+68) of the image, XW floats a row) in shared memory; `mag` is shared
+// scratch of (TH + 2) x MAG_W int16.  A group of THREADS threads (`tid`
+// its thread) calls it after a barrier that publishes `sm`; the group's
+// barrier is __syncthreads (BAR 0) or named barrier BAR of THREADS threads.
+// In NMS a warp takes TH / 4 rows of one 32-column word.
+template <int TH = TILE_H, int BAR = 0>
 __device__ __forceinline__ void back_half(const Frame& f, const float* sm,
-                                          int16_t* mag, int packed, int mn,
-                                          int mx, int16_t* __restrict__ nm_out,
+                                          int16_t* mag, int ty0, int tx0,
+                                          int tid, int packed, int mn, int mx,
+                                          int16_t* __restrict__ nm_out,
                                           uint32_t* __restrict__ weak,
                                           uint32_t* __restrict__ strong) {
+  static_assert(TH % 4 == 0, "back-half geometry");
+  constexpr int MH = TH + 2;           // magnitude rows [row0-1, row0+TH+1)
   const int H = f.H, W = f.W;
-  const int ty0 = blockIdx.y * TILE_H, tx0 = blockIdx.x * TILE_W;
   const int row0 = f.row0 + ty0, col0 = f.col0 + tx0;
-  const int tid = threadIdx.x;
 
-  // ---- Sobel, magnitude and direction on [row0-1, row0+65) x
+  // ---- Sobel, magnitude and direction on [row0-1, row0+TH+1) x
   //      [col0-3, col0+65), four adjacent pixels a thread ----
-  const bool interior = row0 >= 2 && row0 + TILE_H + 2 <= H && col0 >= 4
+  const bool interior = row0 >= 2 && row0 + TH + 2 <= H && col0 >= 4
                         && col0 + TILE_W + 2 <= W;
   auto mag_stage = [&](auto inside_tag) {
     constexpr bool INSIDE = decltype(inside_tag)::value;
-    for (int i = tid; i < MAG_H * (MAG_W / 4); i += THREADS) {
+    for (int i = tid; i < MH * (MAG_W / 4); i += THREADS) {
       const int y = i / (MAG_W / 4), g = i % (MAG_W / 4);
       // pixel (y, 4g + j) is blurred row y + 1, column 4g + j + 1: the patch
       // is blurred rows y..y+2, columns 4g..4g+5
@@ -229,12 +248,13 @@ __device__ __forceinline__ void back_half(const Frame& f, const float* sm,
   };
   if (interior) mag_stage(std::true_type{});
   else mag_stage(std::false_type{});
-  __syncthreads();
+  if constexpr (BAR == 0) __syncthreads();
+  else bar_sync(BAR, THREADS);
 
-  // ---- NMS + output: warp w walks 16 rows of one 32-column word of the
-  //      block; pixels past the image are 0 and clear ----
+  // ---- NMS + output: warp w walks TH / 4 rows of one 32-column word of
+  //      the block; pixels past the image are 0 and clear ----
   {
-    constexpr int ROWS = TILE_H / (THREADS / 64);
+    constexpr int ROWS = TH / (THREADS / 64);
     const int lane = tid & 31, warp = tid >> 5;
     const int wd = (f.ow + 31) / 32;
     const int x = (warp & 1) * 32 + lane;
@@ -288,12 +308,12 @@ __device__ __forceinline__ void back_half(const Frame& f, const float* sm,
 
 template <int WINDOW>
 __global__ void __launch_bounds__(THREADS, 4)
-frontend_kernel(Frame f, const float* __restrict__ taps, int window_rt,
-                int packed, int mn, int mx, int vec_ok,
-                int16_t* __restrict__ nm_out, uint32_t* __restrict__ weak,
-                uint32_t* __restrict__ strong) {
-  const int window = WINDOW > 0 ? WINDOW : window_rt;
-  const Geo G = geo_of(window);
+frontend_kernel(Frame f, const float* __restrict__ taps, int packed, int mn,
+                int mx, int vec_ok, int16_t* __restrict__ nm_out,
+                uint32_t* __restrict__ weak, uint32_t* __restrict__ strong) {
+  static_assert(WINDOW >= 3 && WINDOW <= TILE_MAX && WINDOW % 2 == 1,
+                "the tile path's windows");
+  constexpr Geo G = geo_of(WINDOW);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint8_t* in = smem_raw;
   float* tmp = reinterpret_cast<float*>(smem_raw + G.in_bytes);
@@ -302,12 +322,10 @@ frontend_kernel(Frame f, const float* __restrict__ taps, int window_rt,
   float* cnt_x = reinterpret_cast<float*>(smem_raw + G.in_bytes + G.tmp_bytes
                                           + G.sm_bytes);
   float* cnt_y = cnt_x + XW;           // contiguous with cnt_x
-  float* k_s = cnt_y + SM_H;           // the generic window's taps
 
   const int H = f.H, W = f.W;
   const int c = G.c;
   const int in_h = G.in_h;             // rows [row0 - 2 - c, row0 + 66 + c)
-  const int xoff = G.org - 4 - c;      // tile column of x-pass output 0, tap 0
   // the tile's first output pixel, in the block and in the image
   const int ty0 = blockIdx.y * TILE_H, tx0 = blockIdx.x * TILE_W;
   const int row0 = f.row0 + ty0, col0 = f.col0 + tx0;
@@ -317,14 +335,9 @@ frontend_kernel(Frame f, const float* __restrict__ taps, int window_rt,
   const uint8_t* fsrc = f.src + (size_t)blockIdx.z * f.sh * f.sw;
   const bool vec = vec_ok && (reinterpret_cast<uintptr_t>(fsrc) & 15u) == 0;
 
-  float k[WINDOW > 0 ? WINDOW : 1];
-  if constexpr (WINDOW > 0) {
+  float k[WINDOW];
 #pragma unroll
-    for (int t = 0; t < WINDOW; ++t) k[t] = __ldg(taps + t);
-  } else {
-    k[0] = 0.0f;
-    for (int t = tid; t < window; t += THREADS) k_s[t] = taps[t];
-  }
+  for (int t = 0; t < WINDOW; ++t) k[t] = __ldg(taps + t);
 
   // ---- load: the zero-padded uint8 tile with its halo, 16 bytes a thread;
   //      a texel is read where it lies in the window and in the image ----
@@ -369,17 +382,10 @@ frontend_kernel(Frame f, const float* __restrict__ taps, int window_rt,
     float s = 1.0f;
     if (g >= 0 && g < n) {
       s = 0.0f;
-      if constexpr (WINDOW > 0) {
 #pragma unroll
-        for (int t = 0; t < WINDOW; ++t) {
-          const int q = g + t - c;
-          if (q >= 0 && q < n) s = __fadd_rn(s, k[t]);
-        }
-      } else {
-        for (int t = 0; t < window; ++t) {
-          const int q = g + t - c;
-          if (q >= 0 && q < n) s = __fadd_rn(s, k_s[t]);
-        }
+      for (int t = 0; t < WINDOW; ++t) {
+        const int q = g + t - c;
+        if (q >= 0 && q < n) s = __fadd_rn(s, k[t]);
       }
     }
     cnt_x[j] = s;
@@ -392,14 +398,13 @@ frontend_kernel(Frame f, const float* __restrict__ taps, int window_rt,
     float acc[XR];
 #pragma unroll
     for (int j = 0; j < XR; ++j) acc[j] = 0.0f;
-    if constexpr (WINDOW > 0) {
-      constexpr Geo GC = geo_of(WINDOW);
-      constexpr int XOFF = GC.org - 4 - WINDOW / 2;
+    {
+      constexpr int XOFF = G.org - 4 - WINDOW / 2;
       constexpr int S = XOFF & 3;              // first byte within its word
       constexpr int NV = XR + WINDOW - 1;
       constexpr int NW = (S + NV + 3) / 4;
       const uint32_t* src = reinterpret_cast<const uint32_t*>(in)
-                            + y * (GC.in_w / 4) + (XOFF >> 2) + g * (XR / 4);
+                            + y * (G.in_w / 4) + (XOFF >> 2) + g * (XR / 4);
       uint32_t wv[NW];
 #pragma unroll
       for (int m = 0; m < NW; ++m) wv[m] = src[m];
@@ -412,14 +417,6 @@ frontend_kernel(Frame f, const float* __restrict__ taps, int window_rt,
 #pragma unroll
         for (int j = 0; j < XR; ++j)
           acc[j] = __fadd_rn(acc[j], __fmul_rn(v[j + t], k[t]));
-    } else {
-      const uint8_t* src = in + y * G.in_w + xoff + g * XR;
-      for (int t = 0; t < window; ++t) {
-        const float kt = k_s[t];
-#pragma unroll
-        for (int j = 0; j < XR; ++j)
-          acc[j] = __fadd_rn(acc[j], __fmul_rn((float)src[j + t], kt));
-      }
     }
     // two 16-byte loads of the divisors, two 16-byte stores of the quotients
     static_assert(XR == 8, "the x-pass moves its outputs as two float4");
@@ -440,7 +437,7 @@ frontend_kernel(Frame f, const float* __restrict__ taps, int window_rt,
     float acc[YR];
 #pragma unroll
     for (int j = 0; j < YR; ++j) acc[j] = 0.0f;
-    if constexpr (WINDOW > 0) {
+    {
       constexpr int NV = YR + WINDOW - 1;
       float v[NV];
 #pragma unroll
@@ -450,13 +447,6 @@ frontend_kernel(Frame f, const float* __restrict__ taps, int window_rt,
 #pragma unroll
         for (int j = 0; j < YR; ++j)
           acc[j] = __fadd_rn(acc[j], __fmul_rn(v[j + t], k[t]));
-    } else {
-      for (int t = 0; t < window; ++t) {
-        const float kt = k_s[t];
-#pragma unroll
-        for (int j = 0; j < YR; ++j)
-          acc[j] = __fadd_rn(acc[j], __fmul_rn(src[(j + t) * XW], kt));
-      }
     }
 #pragma unroll
     for (int j = 0; j < YR; ++j) {
@@ -465,20 +455,19 @@ frontend_kernel(Frame f, const float* __restrict__ taps, int window_rt,
   }
   __syncthreads();
 
-  back_half(f, sm, mag, packed, mn, mx, nm_out, weak, strong);
+  back_half(f, sm, mag, ty0, tx0, tid, packed, mn, mx, nm_out, weak, strong);
 }
 
 // the shared memory a block of this window needs
 int smem_bytes(int window) { return geo_of(window).bytes; }
 
 template <int WINDOW>
-cudaError_t launch(const Frame& f, const float* taps, int window, int packed,
-                   int mn, int mx, int16_t* nm_out, uint32_t* weak,
-                   uint32_t* strong, cudaStream_t stream) {
-  const int bytes = smem_bytes(window);
+cudaError_t launch(const Frame& f, const float* taps, int packed, int mn,
+                   int mx, int16_t* nm_out, uint32_t* weak, uint32_t* strong,
+                   cudaStream_t stream) {
+  const int bytes = smem_bytes(WINDOW);
   if (bytes > 48 * 1024) {
     // once per device and instantiation, and always to the device's limit
-    // (one value a kernel, whatever the window): windows may alternate
     static bool opted_in[64];
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
@@ -500,7 +489,462 @@ cudaError_t launch(const Frame& f, const float* taps, int window, int packed,
   const dim3 grid((f.ow + TILE_W - 1) / TILE_W, (f.oh + TILE_H - 1) / TILE_H,
                   f.B);
   frontend_kernel<WINDOW><<<grid, THREADS, bytes, stream>>>(
-      f, taps, window, packed, mn, mx, vec_ok, nm_out, weak, strong);
+      f, taps, packed, mn, mx, vec_ok, nm_out, weak, strong);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Wide windows: a column strip through a ring of x-pass rows
+// ---------------------------------------------------------------------------
+//
+// The tile path's 64x64 tile runs its x-pass over 68 + 2c rows for 64
+// outputs (at 263 taps, 330), and its shared memory grows with (68 + 2c)
+// rows of input and x-pass, one block an SM.  The ring path gives a block a
+// strip of 64 output columns (the tile's 72 x-pass columns) over a run of R
+// output rows, in steps of RTH = 32 rows, and splits its 16 warps in two
+// groups that work at once, handing rows over through a ring:
+//   x-pass warps (8)  fetch the next 32 input rows of the strip (72 + 2c
+//           texels each, zero off the image) in 16-byte loads into
+//           registers, run the x-pass of the current 32 rows out of a
+//           staging buffer (warp g columns [9g, 9g + 9), lane i row i, 9
+//           outputs a thread from register windows of texels, 8 taps at a
+//           time, the next 8 texels and taps loaded while the 8 before
+//           run), store the fetched rows as 32-bit words into the staging
+//           buffer, and write the 32 quotients into the ring;
+//   ring    the last 32 + 2c x-pass rows (73 floats a row), plus 8 rows past
+//           its end that mirror its first 8, so that 8 rows from any slot
+//           are contiguous;
+//   y-pass warps (8)  take a step's blurred rows [ty0 - 2, ty0 + 34): 8
+//           rows of one of the first 64 columns a thread and one row of the
+//           last 8, loaded as the x-pass's are; the first 4 rows come from
+//           the step before (or, on the first step, from a prologue); then
+//           back_half on the 32 x 64 tile (the tile path's Sobel, NMS and
+//           output, at a tile height of 32, on the group's own barrier).
+// Two named barriers hand over: "rows written" (the x-pass warps arrive
+// after writing a step's rows, the y-pass warps wait before reading them)
+// and "rows released" (the y-pass warps arrive once a step's y-pass has
+// read the ring, the x-pass warps wait before overwriting its oldest 32
+// rows), so the x-pass of step k + 1 runs beside the y-pass and back half
+// of step k.  Every x-pass row of the strip is computed once a run: a run
+// costs its R rows plus the prologue's 4 + 2c rows of x-pass, which the
+// x-pass warps compute alone.  The taps and the divisors of the strip's
+// columns and of the run's rows are built in shared memory once a block: a
+// position whose window lies in the image takes the full tap-order sum,
+// summed once.  The grid is (strips, runs, B): as many runs as fill the
+// card's co-resident blocks once, at most RMAX rows a run.  The arithmetic
+// is the tile path's: taps ascending (__fmul_rn, __fadd_rn), __fdiv_rn,
+// floorf on the y-pass.
+
+constexpr int RT = 512;                // ring path threads: 16 warps
+constexpr int RG = 256;                // of which x-pass, and y-pass
+constexpr int RXR = 9;                 // x-pass outputs a thread
+constexpr int RTH = 32;                // output rows a step, and input rows
+constexpr int RSM_H = RTH + 4;         // blurred rows a step
+constexpr int RS = XW + 1;             // ring row stride, in floats
+constexpr int RMIR = 8;                // rows past the ring that mirror it
+constexpr int RMAX = 512;              // output rows a run at most
+constexpr int RB = 6;                  // 16-byte input chunks a thread holds
+
+// named barriers (0 is __syncthreads): among the x-pass warps, among the
+// y-pass warps, "rows written" (the x-pass warps arrive, the y-pass warps
+// wait) and "rows released" (the y-pass warps arrive, the x-pass warps wait)
+constexpr int BAR_X = 1, BAR_Y = 2, BAR_FULL = 3, BAR_EMPTY = 4;
+
+static_assert(RXR * (RG / 32) == XW, "a warp an x-pass group, a lane a row");
+static_assert(TILE_W * (RTH / 8) == RG && (XW - TILE_W) * RTH == RG,
+              "a thread 8 y-pass rows of a column and one of the last 8");
+
+// The ring path's shared-memory layout of a window (byte offsets): taps,
+// column and row divisors, the blurred rows, the magnitudes, the ring and
+// the staging rows of sw bytes (an odd number of words: distinct banks).
+struct RingGeo {
+  int c, ring, sw, k_off, cx_off, sm_off, mag_off, ring_off, st_off, bytes;
+};
+
+__host__ __device__ constexpr RingGeo ring_geo(int window) {
+  const int c = window / 2;
+  const int ring = RTH + 2 * c;
+  // x-pass column x at tap t reads staging byte xoff + x + t, xoff < 4
+  const int sw = ((75 + 2 * c + 3) / 4 | 1) * 4;
+  const int k_off = 0;
+  const int cx_off = k_off + (window + 3) / 4 * 16;
+  const int sm_off = cx_off + (XW + RMAX + 4) * 4;
+  const int mag_off = sm_off + RSM_H * XW * 4;
+  const int ring_off = mag_off + (RTH + 2) * MAG_W * 2;
+  const int st_off = ring_off + ((ring + RMIR) * RS * 4 + 15) / 16 * 16;
+  return RingGeo{c, ring, sw, k_off, cx_off, sm_off, mag_off, ring_off,
+                 st_off, st_off + RTH * sw + 16};
+}
+
+static_assert((XW + RMAX + 4) % 4 == 0 && (RSM_H * XW) % 4 == 0
+              && ((RTH + 2) * MAG_W * 2) % 16 == 0, "16-byte aligned sections");
+
+// acc[j] += value(o + u + j) * k[u] for u < 8 ascending, j < N <= 9, from
+// two 8-value register windows lo (values o..o+7) and hi (o+8..o+15) and
+// the 8 taps in two float4.
+template <int N>
+__device__ __forceinline__ void taps8(float (&acc)[N], const float (&lo)[8],
+                                      const float (&hi)[8], float4 k0,
+                                      float4 k1) {
+  static_assert(N >= 1 && N <= 9, "values o + u + j stay below o + 16");
+  const float kk[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      acc[j] = __fadd_rn(acc[j],
+                         __fmul_rn(u + j < 8 ? lo[u + j] : hi[u + j - 8], kk[u]));
+}
+
+__device__ __forceinline__ float4 taps4(const float* k) {
+  return *reinterpret_cast<const float4*>(k);
+}
+
+// acc[j] = sum over t ascending of value(j + t) * k_s[t], j < N, where
+// load(o, d) sets d[u] = value(o + u) for u < 8 and load(o) is value(o) (o
+// below window + 16; values past window + 8 are loaded and never used).
+// 24 taps a step in three 8-tap halves over three rotating 8-value windows,
+// each half's values and taps loaded a half ahead so that shared memory's
+// latency hides under the half before; then 8 at a time, then tap by tap.
+template <int N, typename Load>
+__device__ __forceinline__ void sweep_taps(float (&acc)[N], const float* k_s,
+                                           int window, const Load& load) {
+  float va[8], vb[8], vc[8];
+  load(0, va);
+  load(8, vb);
+  float4 ka0 = taps4(k_s), ka1 = taps4(k_s + 4);
+  int t0 = 0;
+  for (; t0 + 24 <= window; t0 += 24) {
+    load(t0 + 16, vc);
+    const float4 kb0 = taps4(k_s + t0 + 8), kb1 = taps4(k_s + t0 + 12);
+    taps8(acc, va, vb, ka0, ka1);
+    load(t0 + 24, va);
+    const float4 kc0 = taps4(k_s + t0 + 16), kc1 = taps4(k_s + t0 + 20);
+    taps8(acc, vb, vc, kb0, kb1);
+    load(t0 + 32, vb);
+    ka0 = taps4(k_s + t0 + 24);
+    ka1 = taps4(k_s + t0 + 28);
+    taps8(acc, vc, va, kc0, kc1);
+  }
+  if (t0 + 8 <= window) {
+    load(t0 + 16, vc);
+    taps8(acc, va, vb, ka0, ka1);
+    if (t0 + 16 <= window) {
+      taps8(acc, vb, vc, taps4(k_s + t0 + 8), taps4(k_s + t0 + 12));
+      t0 += 8;
+    }
+    t0 += 8;
+  }
+  for (; t0 < window; ++t0) {
+    float d[8];
+    load(t0, d);
+    const float kt = k_s[t0];
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      acc[j] = __fadd_rn(acc[j], __fmul_rn(j < 8 ? d[j] : load(t0 + j), kt));
+  }
+}
+
+// the x-pass's values: texels of one staging row, from a thread's first
+struct TexelLoad {
+  const uint8_t* p;
+  __device__ __forceinline__ float operator()(int o) const {
+    return (float)p[o];
+  }
+  __device__ __forceinline__ void operator()(int o, float (&d)[8]) const {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) d[u] = (float)p[o + u];
+  }
+};
+
+// the y-pass's values: one column of the ring from the x-pass row in slot s
+struct RingLoad {
+  const float* col;
+  int s, ring;
+  __device__ __forceinline__ const float* row(int o) const {
+    int so = s + o;
+    if (so >= ring) so -= ring;            // o < ring: one wrap at most
+    return col + so * RS;
+  }
+  __device__ __forceinline__ float operator()(int o) const { return *row(o); }
+  __device__ __forceinline__ void operator()(int o, float (&d)[8]) const {
+    const float* q = row(o);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) d[u] = q[u * RS];
+  }
+};
+
+__global__ void __launch_bounds__(RT, 1)
+frontend_ring_kernel(Frame f, const float* __restrict__ taps, int window,
+                     int R, int packed, int mn, int mx, int vec_ok,
+                     int16_t* __restrict__ nm_out,
+                     uint32_t* __restrict__ weak,
+                     uint32_t* __restrict__ strong) {
+  const RingGeo G = ring_geo(window);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* k_s = reinterpret_cast<float*>(smem_raw + G.k_off);
+  float* cnt_x = reinterpret_cast<float*>(smem_raw + G.cx_off);
+  float* cnt_y = cnt_x + XW;           // contiguous with cnt_x
+  float* sm = reinterpret_cast<float*>(smem_raw + G.sm_off);
+  int16_t* mag = reinterpret_cast<int16_t*>(smem_raw + G.mag_off);
+  float* ring = reinterpret_cast<float*>(smem_raw + G.ring_off);
+  uint8_t* st = smem_raw + G.st_off;
+
+  const int H = f.H, W = f.W, c = G.c, RING = G.ring, SW = G.sw;
+  const int tid = threadIdx.x;
+  const bool xw = tid < RG;            // an x-pass warp, else a y-pass warp
+  const int gt = xw ? tid : tid - RG;  // the thread in its group
+  const int lane = gt & 31, warp = gt >> 5;
+  // the strip's first output column and the run's first output row, in the
+  // block and in the image; the run's steps
+  const int tx0 = blockIdx.x * TILE_W, rb0 = blockIdx.y * R;
+  const int col0 = f.col0 + tx0, rr0 = f.row0 + rb0;
+  const int steps = (min(R, f.oh - rb0) + RTH - 1) / RTH;
+  const uint8_t* fsrc = f.src + (size_t)blockIdx.z * f.sh * f.sw;
+  const bool vec = vec_ok && (reinterpret_cast<uintptr_t>(fsrc) & 3u) == 0;
+  // x-pass row j is image row rr0 - 2 - c + j; blurred row b, image row
+  // rr0 - 2 + b, takes x-pass rows [b, b + 2c].  Staging byte 0 is window
+  // column ws0, a multiple of 4; x-pass column x at tap t reads byte
+  // xoff + x + t.
+  const int wcx = tx0 - 4 - c + f.halo;
+  const int ws0 = wcx & ~3;
+  const int xoff = wcx - ws0;
+  const int P = 4 + 2 * c;             // x-pass rows of blurred rows 0..3
+
+  // input rows [j0, j0 + n) of the strip, for staging rows 0..n-1: every
+  // x-pass thread fetches up to RB 16-byte chunks of the window rows into
+  // registers (chunk m covers window columns [cs0 + 16 m, + 16)) before the
+  // x-pass of the rows before them, so that the loads' latency hides under
+  // it, and stores them as 32-bit words after it.  A chunk is one 16-byte
+  // load where it lies in the window and the image and the rows start on 16
+  // bytes, else a word at a time (4 bytes, or bytes), zero off the image.
+  const bool vec16 = vec_ok && (reinterpret_cast<uintptr_t>(fsrc) & 15u) == 0
+                     && f.sw % 16 == 0;
+  const int cs0 = ws0 & ~15;
+  const int nch = (ws0 + SW - cs0 + 15) >> 4;    // chunks a staging row
+  auto word_at = [&](const uint8_t* src, int wc, int gc) {
+    if (vec && wc >= 0 && wc + 4 <= f.sw && gc >= 0 && gc + 4 <= W)
+      return *reinterpret_cast<const uint32_t*>(src + wc);
+    uint32_t w = 0u;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (wc + b >= 0 && wc + b < f.sw && gc + b >= 0 && gc + b < W)
+        w |= (uint32_t)src[wc + b] << (8 * b);
+    return w;
+  };
+  auto chunk_at = [&](int j0, int e) {     // chunk e % nch of row e / nch
+    const int i = e / nch, m = e - i * nch;
+    const int gr = rr0 - 2 - c + j0 + i, wr = gr - f.row0 + f.halo;
+    if (gr < 0 || gr >= H || wr < 0 || wr >= f.sh)
+      return make_uint4(0u, 0u, 0u, 0u);
+    const uint8_t* src = fsrc + (size_t)wr * f.sw;
+    const int wc = cs0 + 16 * m, gc = wc - f.halo + f.col0;
+    if (vec16 && wc >= 0 && wc + 16 <= f.sw && gc >= 0 && gc + 16 <= W)
+      return __ldg(reinterpret_cast<const uint4*>(src + wc));
+    return make_uint4(word_at(src, wc, gc), word_at(src, wc + 4, gc + 4),
+                      word_at(src, wc + 8, gc + 8),
+                      word_at(src, wc + 12, gc + 12));
+  };
+  auto put = [&](int e, uint4 v) {         // its words into staging
+    const int i = e / nch, m = e - i * nch;
+    const int q0 = (cs0 + 16 * m - ws0) >> 2;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(st + i * SW) + q0;
+    const uint32_t wd[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (q0 + k >= 0 && q0 + k < SW / 4) dst[k] = wd[k];
+  };
+  auto fetch = [&](int j0, int n, uint4 (&v)[RB]) {
+#pragma unroll
+    for (int b = 0; b < RB; ++b) {
+      const int e = gt + b * RG;
+      v[b] = e < n * nch ? chunk_at(j0, e) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  auto store = [&](int j0, int n, const uint4 (&v)[RB]) {
+#pragma unroll
+    for (int b = 0; b < RB; ++b)
+      if (gt + b * RG < n * nch) put(gt + b * RG, v[b]);
+    // chunks past what the registers hold, read now
+    for (int e = gt + RB * RG; e < n * nch; e += RG) put(e, chunk_at(j0, e));
+  };
+
+  // an x-pass thread's 9 outputs of staging row `lane` (x-pass row j0 +
+  // lane), and their quotients into its ring slot and the slot's mirror
+  auto xcompute = [&](int n, float (&acc)[RXR]) {
+#pragma unroll
+    for (int j = 0; j < RXR; ++j) acc[j] = 0.0f;
+    if (lane < n)
+      sweep_taps(acc, k_s, window,
+                 TexelLoad{st + lane * SW + xoff + RXR * warp});
+  };
+  auto xwrite = [&](int j0, int n, const float (&acc)[RXR]) {
+    if (lane >= n) return;
+    const int s = (j0 + lane) % RING;
+    float q[RXR];
+#pragma unroll
+    for (int j = 0; j < RXR; ++j)
+      q[j] = __fdiv_rn(acc[j], cnt_x[RXR * warp + j]);
+    float* dst = ring + s * RS + RXR * warp;
+#pragma unroll
+    for (int j = 0; j < RXR; ++j) dst[j] = q[j];
+    if (s < RMIR) {
+      dst += RING * RS;
+#pragma unroll
+      for (int j = 0; j < RXR; ++j) dst[j] = q[j];
+    }
+  };
+
+  // ---- taps, the first input rows, the divisors ----
+  uint4 next[RB];
+  for (int t = tid; t < window; t += RT) k_s[t] = taps[t];
+  if (xw) {
+    fetch(0, min(RTH, P), next);
+    store(0, min(RTH, P), next);
+  }
+  __syncthreads();
+  {
+    // tap-order f32 sums of the in-image weights, 1 off the image: the
+    // strip's XW columns, then the run's blurred rows, up to two a thread.
+    // Where the whole window lies in the image the sum is `full`, the sum
+    // of every tap; only the others sum their own.
+    const int nd = XW + steps * RTH + 4;
+    float sum[2];
+    int g[2], n[2];
+    bool part = false;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int d = tid + e * RT;
+      const bool is_x = d < XW;
+      g[e] = is_x ? col0 - 4 + d : rr0 - 2 + (d - XW);
+      n[e] = d >= nd ? 0 : is_x ? W : H;
+      sum[e] = g[e] >= 0 && g[e] < n[e] ? 0.0f : 1.0f;
+      part = part || (g[e] >= 0 && g[e] < n[e]
+                      && (g[e] - c < 0 || g[e] + c >= n[e]));
+    }
+    float full = 0.0f;
+    auto add = [&](int t, float kt) {
+      full = __fadd_rn(full, kt);
+      if (part) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int q = g[e] + t - c;
+          if (g[e] >= 0 && g[e] < n[e] && q >= 0 && q < n[e])
+            sum[e] = __fadd_rn(sum[e], kt);
+        }
+      }
+    };
+    int t = 0;
+    for (; t + 4 <= window; t += 4) {
+      const float4 k4 = taps4(k_s + t);
+      add(t, k4.x);
+      add(t + 1, k4.y);
+      add(t + 2, k4.z);
+      add(t + 3, k4.w);
+    }
+    for (; t < window; ++t) add(t, k_s[t]);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool inside = g[e] - c >= 0 && g[e] + c < n[e];
+      if (tid + e * RT < nd) cnt_x[tid + e * RT] = inside ? full : sum[e];
+    }
+  }
+  __syncthreads();
+
+  if (xw) {
+    // ---- x-pass warps: the prologue's rows [0, P), then a step's 32 ----
+    float acc[RXR];
+    for (int j0 = 0; j0 < P;) {
+      const int n = min(RTH, P - j0);
+      // the rows after these: the rest of the prologue, or step 0's
+      const int j1 = j0 + n, n1 = j1 < P ? min(RTH, P - j1) : RTH;
+      fetch(j1, n1, next);
+      xcompute(n, acc);
+      bar_sync(BAR_X, RG);             // every x-pass thread read staging
+      store(j1, n1, next);
+      xwrite(j0, n, acc);              // fresh slots: no y-pass reads them
+      bar_sync(BAR_X, RG);             // staging holds rows j1..
+      j0 = j1;
+    }
+    bar_arrive(BAR_FULL, RT);          // the prologue's rows are written
+    for (int k = 0; k < steps; ++k) {
+      const int j1 = P + RTH * (k + 1), n1 = k + 1 < steps ? RTH : 0;
+      fetch(j1, n1, next);
+      xcompute(RTH, acc);
+      bar_sync(BAR_X, RG);
+      store(j1, n1, next);
+      bar_sync(BAR_EMPTY, RT);         // the rows these overwrite are read
+      xwrite(P + RTH * k, RTH, acc);
+      bar_arrive(BAR_FULL, RT);        // step k's rows are written
+      bar_sync(BAR_X, RG);
+    }
+  } else {
+    // ---- y-pass warps: blurred rows 0..3, then a step's 32 and the back
+    //      half on them ----
+    bar_sync(BAR_FULL, RT);
+    for (int i = gt; i < 4 * XW; i += RG) {      // 4 rows x 72 columns
+      const int x = i % XW, b = i / XW;
+      const float* col = ring + x;
+      float acc = 0.0f;
+      for (int t = 0; t < window; ++t)
+        acc = __fadd_rn(acc, __fmul_rn(col[(b + t) * RS], k_s[t]));
+      sm[b * XW + x] = floorf(__fdiv_rn(acc, cnt_y[b]));
+    }
+    bar_arrive(BAR_EMPTY, RT);         // x-pass rows 0..3 are read
+    // 8 rows (yq) of column yx < 64, and row yr of column yt >= 64
+    const int yx = gt % TILE_W, yq = gt / TILE_W;
+    const int yt = TILE_W + (gt & 7), yr = gt >> 3;
+    for (int k = 0; k < steps; ++k) {
+      bar_sync(BAR_FULL, RT);          // step k's rows are written
+      // blurred rows b = 4 + 32k + ... take x-pass rows b .. b + 2c
+      const int b0 = 4 + RTH * k;
+      float acc[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
+      sweep_taps(acc, k_s, window,
+                 RingLoad{ring + yx, (b0 + 8 * yq) % RING, RING});
+      float one[1] = {0.0f};
+      sweep_taps(one, k_s, window,
+                 RingLoad{ring + yt, (b0 + yr) % RING, RING});
+      if (k + 1 < steps) bar_arrive(BAR_EMPTY, RT);    // step k's rows read
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        sm[(4 + 8 * yq + j) * XW + yx] =
+            floorf(__fdiv_rn(acc[j], cnt_y[b0 + 8 * yq + j]));
+      sm[(4 + yr) * XW + yt] = floorf(__fdiv_rn(one[0], cnt_y[b0 + yr]));
+      bar_sync(BAR_Y, RG);
+      back_half<RTH, BAR_Y>(f, sm, mag, rb0 + RTH * k, tx0, gt, packed, mn,
+                            mx, nm_out, weak, strong);
+      bar_sync(BAR_Y, RG);
+      // blurred rows 32..35 are the next step's 0..3 (the next step's
+      // "rows written" barrier orders the copy before its y-pass)
+      for (int i = gt; i < 4 * XW; i += RG) sm[i] = sm[RTH * XW + i];
+    }
+  }
+}
+
+// the ring path's shared memory at this window
+int ring_smem_bytes(int window) { return ring_geo(window).bytes; }
+
+cudaError_t launch_ring(const Frame& f, const float* taps, int window,
+                        int packed, int mn, int mx, int16_t* nm_out,
+                        uint32_t* weak, uint32_t* strong,
+                        cudaStream_t stream) {
+  const int bytes = ring_smem_bytes(window);
+  // the blocks the card holds at once (which also sets the kernel's shared
+  // memory attribute to the device's limit)
+  int slots = 0;
+  cudaError_t e = masks::coop_blocks((const void*)frontend_ring_kernel, RT,
+                                     bytes, 8, &slots);
+  if (e != cudaSuccess) return e;
+  const int strips = (f.ow + TILE_W - 1) / TILE_W;
+  const int runs0 = max(max(1, slots / (strips * f.B)),
+                        (f.oh + RMAX - 1) / RMAX);
+  const int R = ((f.oh + runs0 - 1) / runs0 + RTH - 1) / RTH * RTH;
+  const dim3 grid(strips, (f.oh + R - 1) / R, f.B);
+  frontend_ring_kernel<<<grid, RT, bytes, stream>>>(
+      f, taps, window, R, packed, mn, mx, f.sw % 4 == 0, nm_out, weak,
+      strong);
   return cudaGetLastError();
 }
 
@@ -511,28 +955,37 @@ bool valid(const Frame& f, int window) {
            || window < 1 || window % 2 == 0);
 }
 
+// the tile instantiation of `window` (odd, 3..TILE_MAX), found from W up
+template <int W>
+cudaError_t launch_tile(int window, const Frame& f, const float* taps,
+                        int packed, int mn, int mx, int16_t* nm_out,
+                        uint32_t* weak, uint32_t* strong, cudaStream_t stream) {
+  if constexpr (W > TILE_MAX) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (window == W)
+      return launch<W>(f, taps, packed, mn, mx, nm_out, weak, strong, stream);
+    return launch_tile<W + 2>(window, f, taps, packed, mn, mx, nm_out, weak,
+                              strong, stream);
+  }
+}
+
+// windows 3..TILE_MAX take their tile instantiation, every wider one the
+// ring (cudaErrorInvalidValue past what its shared memory holds)
 int run(const Frame& f, const void* taps, int window, int packed, int mn,
         int mx, void* nm_out, void* weak, void* strong, void* stream) {
   if (!valid(f, window)) return (int)cudaErrorInvalidValue;
-#define CANNY_FRONTEND_LAUNCH(WIN)                                            \
-  return (int)launch<WIN>(f, (const float*)taps, window, packed, mn, mx,      \
-                          (int16_t*)nm_out, (uint32_t*)weak,                  \
-                          (uint32_t*)strong, (cudaStream_t)stream)
-  switch (window) {
-    case 3: CANNY_FRONTEND_LAUNCH(3);
-    case 5: CANNY_FRONTEND_LAUNCH(5);
-    case 7: CANNY_FRONTEND_LAUNCH(7);
-    case 9: CANNY_FRONTEND_LAUNCH(9);
-    case 11: CANNY_FRONTEND_LAUNCH(11);
-    case 13: CANNY_FRONTEND_LAUNCH(13);
-    case 15: CANNY_FRONTEND_LAUNCH(15);
-    default: CANNY_FRONTEND_LAUNCH(0);
-  }
-#undef CANNY_FRONTEND_LAUNCH
+  const float* t = (const float*)taps;
+  int16_t* nm = (int16_t*)nm_out;
+  uint32_t *wk = (uint32_t*)weak, *sg = (uint32_t*)strong;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (window <= TILE_MAX)
+    return (int)launch_tile<3>(window, f, t, packed, mn, mx, nm, wk, sg, st);
+  return (int)launch_ring(f, t, window, packed, mn, mx, nm, wk, sg, st);
 }
 
 // ---------------------------------------------------------------------------
-// Windows past a tile's shared memory: the blur through device memory
+// Windows past the ring's shared memory: the blur through device memory
 // ---------------------------------------------------------------------------
 //
 // Output (oh, ow) at image pixel (row0, col0) needs the floored blur of rows
@@ -680,7 +1133,8 @@ frontend_tail_kernel(Frame f, const float* __restrict__ blur, int packed,
     sm[i] = by < ny && bx >= 0 && bx < nx ? fb[(size_t)by * nx + bx] : 0.0f;
   }
   __syncthreads();
-  back_half(f, sm, mag, packed, mn, mx, nm_out, weak, strong);
+  back_half(f, sm, mag, ty0, tx0, (int)threadIdx.x, packed, mn, mx, nm_out,
+            weak, strong);
 }
 
 int run_large(const Frame& f, const float* taps, int window, int packed,
@@ -716,21 +1170,29 @@ int run_large(const Frame& f, const float* taps, int window, int packed,
 
 extern "C" {
 
-// The largest odd window whose tile fits a block's shared memory on the
-// current device (0 if the device cannot be asked): the single-tile path's.
-// A wider window takes canny_frontend_large.
+// Shared memory of a block of canny_frontend and canny_frontend_block at
+// `window` taps (odd, >= 3), on the path the window takes: the tile path's
+// up to TILE_MAX, the ring path's above.
+int canny_frontend_smem_bytes(int window) {
+  return window <= TILE_MAX ? smem_bytes(window) : ring_smem_bytes(window);
+}
+
+// The largest odd window that canny_frontend and canny_frontend_block take
+// on the current device (0 if the device cannot be asked): 3..103 on the
+// tile path, from 105 on the ring path up to what a block's shared memory
+// holds.  A wider window takes canny_frontend_large.
 int canny_frontend_max_window() {
   const int limit = masks::smem_optin_limit();
   int w = 1;
-  while (smem_bytes(w + 2) <= limit) w += 2;
+  while (canny_frontend_smem_bytes(w + 2) <= limit) w += 2;
   return w < 3 ? 0 : w;
 }
 
 // img: uint8 (B, H, W), 1 <= B <= 65535; taps: float32 (window); packed ==
 // 0 -> nm_out int16 (B, H, W); packed != 0 -> weak/strong uint32 (B, H,
 // ceil(W/32)).  One launch on `stream` for the batch; returns
-// cudaGetLastError().  Windows 3..15 run their own unrolled instantiation,
-// every other odd window the generic one.
+// cudaGetLastError().  Windows 3..103 run their own unrolled instantiation,
+// wider ones the ring path, up to canny_frontend_max_window().
 int canny_frontend(const void* img, int B, int H, int W, const void* taps,
                    int window, int packed, int mn, int mx, void* nm_out,
                    void* weak, void* strong, void* stream) {

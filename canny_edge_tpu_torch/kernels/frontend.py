@@ -5,9 +5,12 @@ the packed uint32 ``(weak, strong)`` masks ``(H, ceil(W/32))``
 (:func:`frontend`), and the same for a ``(B, H, W)`` batch in one launch
 (JAX's ``vmap`` over its kernel); the same for one block of a larger image,
 given its window with the halo (:func:`frontend_block`, K1's block mode).
-Any odd window: the tile path (every stage in one block's shared memory)
-takes the windows whose tile fits (:func:`max_window`, 263 on the H100), the
-scratch path every wider one (the blur through device memory, kept per
+Any odd window, on one of three paths (:func:`k1_path`): the tile path
+(every stage in one block's shared memory, unrolled per window) takes
+windows 3 to 103, the ring path (a column strip streamed through a ring of
+x-pass rows) every wider window that its shared memory holds
+(:func:`max_window`, 613 on the H100),
+the scratch path every wider one (the blur through device memory, kept per
 device, stream and shape as :mod:`._scratch` keeps the floods'; then the
 same back half).  A CPU tensor goes to the plain version
 (:mod:`..ops.window`, a frame at a time); a CUDA tensor goes to the kernel
@@ -28,11 +31,16 @@ from ._scratch import Scratch
 
 # kernel launches made by this wrapper (the main path's proof of use): all,
 # those in block mode, those on a batch of two frames or more, and those on
-# the scratch path (a window wider than the tile path's)
+# the ring and the scratch paths (windows from 105 taps)
 launches = 0
 block_launches = 0
 batch_launches = 0
+ring_launches = 0
 scratch_launches = 0
+
+# the tile path's instantiations (csrc/frontend.cu:TILE_MAX): past 103 taps
+# the ring path is the faster on the H100
+TILE_WINDOWS = tuple(range(3, 104, 2))
 
 MAX_BATCH = 65535    # frames a launch: the grid's z limit
 # the scratch path's float32 scratch a launch at most (1 GiB): a batch
@@ -43,34 +51,15 @@ _max_window: dict[int, int] = {}
 _scratch = Scratch()
 
 
-def tile_smem_bytes(window: int) -> int:
-    """Shared memory of a block of the tile path at ``window`` taps: the
-    mirror of ``csrc/frontend.cu:geo_of(window).bytes`` (the input tile with
-    its halo, the x-pass buffer, the blurred tile, divisors and taps)."""
-    c = window // 2
-    org = 16 if 4 + c <= 16 else (4 + c + 15) // 16 * 16
-    in_w = (org + 64 + 4 + c + 15) // 16 * 16
-    in_h = 68 + 2 * c
-    return (in_h * in_w + in_h * 72 * 4 + 68 * 72 * 4
-            + (72 + 68 + window + 3) // 4 * 16)
-
-
-def max_tile_window(smem_limit: int) -> int:
-    """The largest odd window whose tile fits ``smem_limit`` bytes of shared
-    memory a block (0 below 3): ``canny_frontend_max_window``'s answer on a
-    card whose opt-in limit is ``smem_limit``."""
-    w = 1
-    while tile_smem_bytes(w + 2) <= smem_limit:
-        w += 2
-    return w if w >= 3 else 0
-
-
 def k1_path(window: int, max_window: int) -> str:
-    """The path K1 takes at ``window`` taps on a card whose tile path takes
-    windows up to ``max_window``: ``"tile"`` (every stage in one block's
-    shared memory) or ``"scratch"`` (the blur through device memory, then
-    the same back half)."""
-    return "tile" if window <= max_window else "scratch"
+    """The path K1 takes at ``window`` taps on a card whose tile and ring
+    paths take windows up to ``max_window``: ``"tile"`` (3 to 103, every
+    stage in one block's shared memory), ``"ring"`` (a column strip through
+    a ring of x-pass rows) or ``"scratch"`` (the blur through device memory,
+    then the same back half)."""
+    if window > max_window:
+        return "scratch"
+    return "tile" if window in TILE_WINDOWS else "ring"
 
 
 def scratch_floats(b: int, oh: int, ow: int, window: int) -> int:
@@ -83,8 +72,8 @@ def scratch_floats(b: int, oh: int, ow: int, window: int) -> int:
 
 
 def max_window(device: torch.device) -> int:
-    """The largest window K1's tile path takes on ``device`` (a CUDA
-    device), as its shared memory allows (asked of the library once a
+    """The largest window K1's tile and ring paths take on ``device`` (a
+    CUDA device), as its shared memory allows (asked of the library once a
     device); a wider one takes the scratch path."""
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
@@ -110,12 +99,12 @@ def _bounds(thresholds):
     return tuple(threshold_bound(t) for t in thresholds)
 
 
-def _launch(src: torch.Tensor, taps: torch.Tensor, thresholds, geom,
-            tile_entry, lead=()):
+def _launch(src: torch.Tensor, taps: torch.Tensor, thresholds, geom, entry,
+            lead=()):
     """Check the device, allocate the outputs, launch K1 on ``geom = (B,
-    halo, oh, ow, row0, col0, H, W)``: the tile path through
-    ``tile_entry = (name, args)`` where the window allows it, else the
-    scratch path."""
+    halo, oh, ow, row0, col0, H, W)``: the tile or ring path through
+    ``entry = (name, args)`` where the window allows it, else the scratch
+    path."""
     dev = src.device
     if dev.type != "cuda" or taps.device != dev:
         raise ValueError(f"image on {dev} and taps on {taps.device}: "
@@ -138,30 +127,32 @@ def _launch(src: torch.Tensor, taps: torch.Tensor, thresholds, geom,
     with _build.device_guard(dev):
         lib = _build.load("frontend")
         stream = _build.stream_handle(dev)
-        if path == "tile":
-            name, args = tile_entry
+        if path != "scratch":
+            name, args = entry
             err = getattr(lib, name)(src.data_ptr(), *args, taps.data_ptr(),
                                      window, *out, stream)
         else:
             name = "canny_frontend_large"
             n = scratch_floats(b, oh, ow, window)
-            entry = _scratch.lookup(dev, stream, (b, oh, ow, window))
-            if entry is None:
-                entry = _scratch.create(dev, stream, (b, oh, ow, window), 0)
-                entry["floats"] = torch.empty(n, dtype=torch.float32,
-                                              device=dev)
+            scr = _scratch.lookup(dev, stream, (b, oh, ow, window))
+            if scr is None:
+                scr = _scratch.create(dev, stream, (b, oh, ow, window), 0)
+                scr["floats"] = torch.empty(n, dtype=torch.float32,
+                                            device=dev)
             err = lib.canny_frontend_large(
                 src.data_ptr(), *geom, taps.data_ptr(), window, *out,
-                entry["floats"].data_ptr(), n, stream)
+                scr["floats"].data_ptr(), n, stream)
     _build.check(err, f"{name} launch")
     return path, (nm if thresholds is None else (weak, strong))
 
 
 def _count(path: str, b: int, block: bool = False) -> None:
-    global launches, block_launches, batch_launches, scratch_launches
+    global launches, block_launches, batch_launches, ring_launches
+    global scratch_launches
     launches += 1
     block_launches += block
     batch_launches += b > 1
+    ring_launches += path == "ring"
     scratch_launches += path == "scratch"
 
 
@@ -172,7 +163,7 @@ def frontend(img: torch.Tensor, taps: torch.Tensor, thresholds=None):
     the frames' (one launch on the card for up to ``MAX_BATCH`` frames, a
     launch a chunk of that many above it; on the scratch path, chunks whose
     scratch stays within ``SCRATCH_FLOATS``).  Any odd window: up to
-    :func:`max_window` the tile path, above it the scratch path.
+    :func:`max_window` the tile or ring path, above it the scratch path.
     ``thresholds``: optional ``(min_val, max_val)``, compared as JAX
     compares an integer map with them (:func:`_bounds`).
     """

@@ -28,6 +28,7 @@ from ..kernels.fused import canny_fused, resolve_device, taps_tensor, to_device
 from ..kernels.hysteresis_packed import hysteresis_packed
 from ..ops import stages
 from ..ops.gaussian import gaussian_kernel
+from ..ops.packed import cdiv
 from ..ops.packed import hysteresis_packed as hysteresis_packed_plain
 from ..ops.thresholds import threshold_int32
 from ..ops.window import frontend_nm
@@ -70,6 +71,24 @@ def _check_backend(backend: str) -> None:
                          f"{BACKENDS}")
 
 
+def _empty(img: torch.Tensor, backend: str, packed: bool = False):
+    """JAX's result on an input without a pixel whose width is not 0, else
+    None: a frame of no rows or a batch of them on ``xla`` and ``fused``, a
+    batch of no frames of at least one row on every backend, is an int16
+    map of the input's shape (``packed``: the uint32 words of such a map,
+    whatever the backend) on the input's device.  JAX refuses a width of 0,
+    and no rows on ``pallas``; so do the kernels and the plain version."""
+    if img.numel() or img.dim() not in (2, 3):
+        return None
+    h, w = img.shape[-2:]
+    if w == 0 or (backend == "pallas" and h == 0 and not packed):
+        return None
+    if packed:
+        return torch.zeros((*img.shape[:-1], cdiv(w, 32)), dtype=torch.uint32,
+                           device=img.device)
+    return torch.zeros(img.shape, dtype=torch.int16, device=img.device)
+
+
 def _host_taps(kernel_vals) -> np.ndarray:
     """The taps as float32 host values (the plain front end's argument)."""
     if isinstance(kernel_vals, torch.Tensor):
@@ -91,12 +110,15 @@ def canny_fn(img, min_val, max_val, *, kernel_vals, hysteresis_steps=4,
     end and the plain packed flood), "fused" (K1 with the thresholds, then K2
     to int16) or "pallas" (:func:`..kernels.fused.canny_fused`: K1 to the NMS
     map, then K2).  ``hysteresis_mode``: "component" or "strict-reference".
-    A batch goes to :func:`canny_fn_batched`.
+    A batch goes to :func:`canny_fn_batched`.  A frame of no rows gives an
+    empty map, as JAX's does (:func:`_empty`).
     """
     del hysteresis_steps
     strict = _strict(hysteresis_mode)
     _check_backend(backend)
     img = to_device(img, device)
+    if (out := _empty(img, backend)) is not None:
+        return out
     if img.dim() == 3:
         return canny_fn_batched(img, min_val, max_val,
                                 kernel_vals=kernel_vals, backend=backend,
@@ -128,10 +150,12 @@ def canny_fn_packed(img, min_val, max_val, *, kernel_vals,
     bitmask (bit b of word j = column 32j + b), where ``img`` lies: K1 with
     the thresholds, then K2, whose packed state is the output (no unpack);
     a batch is one launch of each.  ``img``, ``kernel_vals``, ``device``: as
-    in :func:`canny_fn`.
+    in :func:`canny_fn`; no rows or no frames give empty words.
     """
     strict = _strict(hysteresis_mode)
     img = to_device(img, device)
+    if (out := _empty(img, "fused", packed=True)) is not None:
+        return out
     h, w = img.shape[-2:]
     weak, strong = frontend(img, taps_tensor(kernel_vals, img.device),
                             (min_val, max_val))
@@ -144,13 +168,16 @@ def canny_fn_batched(imgs, min_val, max_val, *, kernel_vals,
     """(B, H, W) uint8 -> (B, H, W) int16 {0, 255}, each frame with its own
     convergence (JAX's ``lax.map``): on ``fused`` and ``pallas`` one launch
     of each stage for the batch, on ``xla`` :func:`canny_fn` a frame at a
-    time."""
+    time.  Frames of no rows, or no frames, give an empty map as JAX's do
+    (:func:`_empty`)."""
     strict = _strict(hysteresis_mode)
     _check_backend(backend)
     imgs = to_device(imgs, device)
     if imgs.dim() != 3:
         raise ValueError(f"expected a (B, H, W) batch, got "
                          f"{tuple(imgs.shape)}")
+    if (out := _empty(imgs, backend)) is not None:
+        return out
     if backend == "xla":
         return torch.stack([
             canny_fn(f, min_val, max_val, kernel_vals=kernel_vals,

@@ -55,10 +55,14 @@ def renorm_count(n: int, kernel: np.ndarray) -> np.ndarray:
 
 
 def isqrt(n: torch.Tensor) -> torch.Tensor:
-    """Exact floor(sqrt(n)) for int32 ``0 <= n <= ~2.1e6``."""
-    k = torch.floor(torch.sqrt(n.to(torch.float64))).to(torch.int32)
-    k = torch.where((k + 1) * (k + 1) <= n, k + 1, k)
-    return torch.where(k * k > n, k - 1, k)
+    """Exact floor(sqrt(n)) for integer ``n >= 0``, in ``n``'s dtype: any
+    int32 ``n`` (JAX's ``isqrt_int32`` is exact to ~2.1e6), an int64 ``n``
+    below 2^52.  The correction products are int64, which int32's roots
+    cannot overflow."""
+    m = n.to(torch.int64)
+    k = torch.floor(torch.sqrt(m.to(torch.float64))).to(torch.int64)
+    k = torch.where((k + 1) * (k + 1) <= m, k + 1, k)
+    return torch.where(k * k > m, k - 1, k).to(n.dtype)
 
 
 def blur(img: torch.Tensor, kernel) -> torch.Tensor:
@@ -96,8 +100,9 @@ def sobel(img: torch.Tensor):
 
 
 def nms(gx: torch.Tensor, gy: torch.Tensor, mp: torch.Tensor) -> torch.Tensor:
-    """int32 gradients (h, w) and magnitudes with a ring of one (h+2, w+2),
-    -32768 off the image -> int32 NMS magnitude (the max-cascade form)."""
+    """Integer gradients (h, w) and magnitudes with a ring of one (h+2,
+    w+2), -32768 off the image -> NMS magnitude in their dtype (the
+    max-cascade form)."""
     h, w = gx.shape
     mag = mp[1:1 + h, 1:1 + w]
 
@@ -156,7 +161,9 @@ def frontend_block(window: torch.Tensor, row0: int, col0: int, H: int, W: int,
     for t in range(kernel.shape[0]):
         acc = acc + temp[t:t + ho] * float(kernel[t])
     cnt = torch.from_numpy(count_vector(row0 - 2, ho, H, kernel)).to(dev)
-    s = torch.floor(acc / cnt[:, None]).to(torch.int32)
+    # the gradients and their squares in int64: exact for any frame (a
+    # uint8 frame's stay below 2^21; a uint16 frame's pass int32's range)
+    s = torch.floor(acc / cnt[:, None]).to(torch.int64)
 
     # Sobel on rows row0 - 1 .. row0 + hl, columns col0 - 1 .. col0 + wl:
     # gx takes clamped columns and drops off-image row terms, gy the reverse
@@ -176,7 +183,8 @@ def frontend_block(window: torch.Tensor, row0: int, col0: int, H: int, W: int,
     mp = torch.where(inside, isqrt(gx * gx + gy * gy), NMS_OOB)
 
     core = inside[1:-1, 1:-1]
-    nm = torch.where(core, nms(gx[1:-1, 1:-1], gy[1:-1, 1:-1], mp), 0)
+    nm = torch.where(core, nms(gx[1:-1, 1:-1], gy[1:-1, 1:-1], mp),
+                     0).to(torch.int32)
     if thresholds is None:
         return nm
     mn, mx = thresholds

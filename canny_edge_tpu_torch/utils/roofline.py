@@ -195,7 +195,7 @@ def _bound(nbytes: int, ops: int) -> dict:
 
 
 def kernel_bounds(hw=(1080, 1920), window: int = 11, block=(1080, 960),
-                  extended=(1082, 1024), batch=None, scratch_window: int = 301,
+                  extended=(1082, 1024), batch=None,
                   wide=(64, 131072)) -> dict[str, dict]:
     """``{kernel: {"bound_ms", "bound_by"}}``: each kernel's least time on
     the H100 SXM at the shapes ``chip_smoke.py`` runs it, from the hand
@@ -208,11 +208,11 @@ def kernel_bounds(hw=(1080, 1920), window: int = 11, block=(1080, 960),
     and K4 (int16 map in and out).  ``block``: a ``(hl, wl)`` block of K1's
     block mode, read with a halo of ``window // 2 + 2``.  ``extended``: the
     ``(rows, columns)`` of the halo-extended masks K2 floods with the strict
-    fix at ``quirk_rw=(1, 1)``.  ``scratch_window``: the window of K1's
-    scratch path (``frontend_scratch``) on the frame ``hw``; ``wide``: the
-    ``(rows, columns)`` of K4's wide path (``hysteresis_banded_wide``).  The
-    function bounds them, not the path: the bytes and the hand model's
-    operations are those of the same function at that window or width.
+    fix at ``quirk_rw=(1, 1)``.  K1's ring and scratch paths compute
+    ``frontend`` at their windows: their bound is ``frontend``'s at that
+    ``window``.  ``wide``: the ``(rows, columns)`` of K4's wide path
+    (``hysteresis_banded_wide``), bounded as the same function at that
+    width.
     """
     h, w = hw
     wd = -(-w // 32)
@@ -238,7 +238,5 @@ def kernel_bounds(hw=(1080, 1920), window: int = 11, block=(1080, 960),
             hl * wl * k1_ops_per_px(window)),
         "hysteresis_packed_quirk": (3 * eh * ewd * 4,
                                     K2_OPS_PER_WORD * eh * ewd),
-        "frontend_scratch": (h * w + 2 * h * wd * 4,
-                             h * w * k1_ops_per_px(scratch_window)),
         "hysteresis_banded_wide": engine(*wide),
     }.items()}

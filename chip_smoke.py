@@ -19,8 +19,8 @@ Phases (any failure exits non-zero and prints no result):
   2. build every kernel from ``canny_edge_tpu_torch/kernels/csrc`` (nvcc)
      and the native feeder from ``canny_edge_tpu_torch/runtime/csrc`` (g++);
   3. K1 against its plain PyTorch version on the card, bit-equal, in nm and
-     threshold mode (8 sigmas: every window the kernel unrolls, 3 to 15, and
-     a generic one, 19; 1080p and 4K, shapes one off its 64x64 tile, W = 1,
+     threshold mode (8 sigmas: windows 3 to 15 and 19, all on the tile path;
+     1080p and 4K, shapes one off its 64x64 tile, W = 1,
      31, 33, 333, 1000, 1921; 3 threshold pairs, and one far outside the
      magnitudes);
   4. K2 against its plain versions, bit-equal, component and strict, in all
@@ -120,18 +120,21 @@ Phases (any failure exits non-zero and prints no result):
      CPU and ``golden``, the model classes, which truncate, against the
      CPU); printed on a ``sweep:`` line (cases by kernel and mode,
      launches, threshold cases, mismatches, seconds);
- 15. capacity (``capacity_phase``): K1 at windows 263 (the tile path's
-     last on the H100), 265, 301 and 601 and K4 at 32768, 32769, 40000,
-     131072 and 524288 columns.  The slice's path with its launch counts
-     from 0 (``CannyTorch`` ``fused``, ``canny_fn`` ``pallas`` and
-     ``ShardedCanny`` static on an in-process 1x2x2 mesh at each window on
-     a 1080p ``capacity_frame``, ``canny_fused`` ``banded`` on a 96x40000
-     frame: K1's scratch path in frame and block mode and K4's wide path
-     run) against the plain pipeline; K1 in NMS, threshold, batch (3 at
-     257x333) and block mode and K4 (a serpentine and a random map, edges
-     and sweeps at the band that ran) against their plain versions,
-     ``canny_fn`` against ``golden``; 0 mismatches; device ms by window and
-     width, printed on a ``capacity:`` line.
+ 15. capacity (``capacity_phase``): K1 at windows 263, 265, 301 and 601
+     (its ring path on the H100, which takes 105 to 613 taps) and 701 (its
+     scratch path) and K4 at 32768, 32769, 40000, 131072 and 524288 columns.
+     The slice's path with its launch counts from 0 (``CannyTorch``
+     ``fused``, ``canny_fn`` ``pallas`` and ``ShardedCanny`` static on an
+     in-process 1x2x2 mesh at each window on a 1080p ``capacity_frame``,
+     ``canny_fused`` ``banded`` on a 96x40000 frame: K1's ring and scratch
+     paths in frame and block mode and K4's wide path run) against the
+     plain pipeline; K1 in NMS, threshold, batch (3 at 257x333) and block
+     mode and K4 (a serpentine and a random map, edges and sweeps at the
+     band that ran) against their plain versions, ``canny_fn`` against
+     ``golden``; K1 in threshold mode over the window sweep ``K1_SWEEP``
+     (17 to 601 taps) against its plain version, with its path, device ms
+     and bound at each window; 0 mismatches; device ms by window and width,
+     printed on a ``capacity:`` line.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Every measured number also goes to
 standard error as one ``report:`` JSON line and to
@@ -766,7 +769,7 @@ def multi_device_phase(dev, time_ms, device_ms, hw=SIZES["1080p"],
 
     rep = {}
     t0 = time.perf_counter()
-    # ---- K1 at the windows of the generic instantiation, up to 55 ----
+    # ---- K1 at windows 17 to 55 (the tile path's unrolled instantiations) ----
     windows = set()
     k1_err = 0
     for sigma in (2.5, 3.2, 3.9, 4.9, 5.2, 6.0, 9.0):
@@ -1907,9 +1910,13 @@ def sweep_phase(dev, cfgs=None, workers=6, chunked=(65537, 1, 3)):
     return rep
 
 
-# Phase 15: K1 past its tile path's last window (263 taps on the H100) and K4
-# past the block-wide path's 32768 columns
-CAPACITY_SIGMAS = {263: 43.66, 265: 43.67, 301: 50.0, 601: 100.0}
+# Phase 15: K1 at wide windows (its ring path on the H100 from 105 to 613
+# taps, its scratch path past them) and K4 past the block-wide path's 32768
+# columns
+CAPACITY_SIGMAS = {263: 43.66, 265: 43.67, 301: 50.0, 601: 100.0,
+                   701: 116.5}
+# K1's window sweep at 1080p: device ms, bound and path by window
+K1_SWEEP = (17, 19, 25, 31, 37, 49, 61, 121, 201, 263, 265, 301, 601)
 CAPACITY_WIDTHS = ((130, 32768), (130, 32769), (96, 40000), (64, 131072),
                    (64, 524288))
 CAP_MN, CAP_MX = 1, 3      # a 601-tap blur leaves steps of a few levels
@@ -1928,7 +1935,7 @@ def capacity_frame(h, w, seed=0):
 
 def capacity_phase(dev, time_ms, device_ms, hw=SIZES["1080p"],
                    odd=(257, 333), widths=CAPACITY_WIDTHS,
-                   wide_frame=(96, 40000)):
+                   wide_frame=(96, 40000), sweep=K1_SWEEP):
     """Phase 15: every frame JAX computes, on the card.
 
     The slice's path, with the launch counts from 0 just before and read
@@ -1936,16 +1943,18 @@ def capacity_phase(dev, time_ms, device_ms, hw=SIZES["1080p"],
     ``ShardedCanny``'s static engine on an in-process 1x2x2 mesh at each
     window of ``CAPACITY_SIGMAS`` on a ``capacity_frame`` of ``hw``, and
     ``canny_fused(hysteresis_impl="banded")`` on a ``wide_frame``: K1's
-    scratch path, in frame and block mode, and K4's wide path must run,
-    and every result equals the plain pipeline on the card.  Then each
-    kernel against its plain version on the card: K1 at each window in NMS
-    and threshold mode at ``hw``, on a batch of 3 at ``odd`` and in block
-    mode; ``canny_fn`` on ``fused`` and ``pallas`` against the port's
-    ``golden`` at ``odd``; K4 on a serpentine and a random map at each of
-    ``widths``, edges and sweeps at the band that ran.  Times: K1 at ``hw``
-    and K4 at each width, by CUDA events and torch.profiler, with the plain
-    versions'.  0 mismatches.  Returns ``(report, kernel entries of the
-    kernels line)``."""
+    ring and scratch paths, in frame and block mode, and K4's wide path
+    must run as ``kernels.frontend.k1_path`` chooses, and every result
+    equals the plain pipeline on the card.  Then each kernel against its
+    plain version on the card: K1 at each window in NMS and threshold mode
+    at ``hw``, on a batch of 3 at ``odd`` and in block mode; ``canny_fn``
+    on ``fused`` and ``pallas`` against the port's ``golden`` at ``odd``;
+    K1 in threshold mode at each window of ``sweep``; K4 on a serpentine
+    and a random map at each of ``widths``, edges and sweeps at the band
+    that ran.  Times: K1 at ``hw`` at every window and K4 at each width, by
+    CUDA events and torch.profiler, with the plain versions'.  0
+    mismatches.  Returns ``(report, kernel entries of the kernels
+    line)``."""
     import torch
 
     from canny_edge_tpu_torch import CannyTorch, golden
@@ -1994,7 +2003,7 @@ def capacity_phase(dev, time_ms, device_ms, hw=SIZES["1080p"],
              CAPACITY_SIGMAS.items()}
     check(all(m.engine == "static" for m in shard.values()),
           "ShardedCanny at a capacity window is not on its static engine")
-    for mod, names in ((kfe, ("launches", "block_launches",
+    for mod, names in ((kfe, ("launches", "block_launches", "ring_launches",
                               "scratch_launches")),
                        (khp, ("launches",)), (k4, ("launches",
                                                    "wide_launches"))):
@@ -2018,21 +2027,27 @@ def capacity_phase(dev, time_ms, device_ms, hw=SIZES["1080p"],
         outs["sharded", win] = shard[win](frame[None], CAP_MN, CAP_MX)[0]
     sync()
     counts = {"frontend": kfe.launches, "frontend_block": kfe.block_launches,
+              "frontend_ring": kfe.ring_launches,
               "frontend_scratch": kfe.scratch_launches,
               "hysteresis_packed": khp.launches,
               "hysteresis_banded": k4.launches,
               "hysteresis_banded_wide": k4.wide_launches}
     log(f"capacity path launches: {counts}")
     if dev.type == "cuda":
-        over = sum(win > kfe.max_window(dev) for win in CAPACITY_SIGMAS)
+        paths = [kfe.k1_path(win, kfe.max_window(dev))
+                 for win in CAPACITY_SIGMAS]
         nwin = len(CAPACITY_SIGMAS)
-        check(over == 3 and counts["frontend_scratch"] == 6 * over
+        check(paths.count("ring") == 4 and paths.count("scratch") == 1
+              and counts["frontend_ring"] == 6 * paths.count("ring")
+              and counts["frontend_scratch"] == 6 * paths.count("scratch")
               and counts["frontend_block"] == 4 * nwin
               and counts["hysteresis_banded_wide"] == 1
               and counts["hysteresis_banded"] == 1,
-              f"the capacity path launched {counts}: want 6 scratch-path "
-              f"launches of K1 a window past {kfe.max_window(dev)} taps (1 "
-              f"fused, 1 pallas, 4 blocks) and one wide K4")
+              f"the capacity path launched {counts} on K1 paths {paths}: "
+              f"want 6 launches of K1 a window (1 fused, 1 pallas, 4 blocks) "
+              f"on the path the window takes, 4 windows on the ring path and "
+              f"one past {kfe.max_window(dev)} taps on the scratch path, and "
+              f"one wide K4")
         check(not any(plain_diff.values()),
               f"the capacity path called a plain pack/unpack: {plain_diff}")
     edge_px = {}
@@ -2117,6 +2132,32 @@ def capacity_phase(dev, time_ms, device_ms, hw=SIZES["1080p"],
             "device_ms": sum(by.values()) if by else "not measured",
             "device_by_kernel": by, "plain_ms": plain_ms,
             "bound_ms": kb["bound_ms"], "bound_by": kb["bound_by"]}
+    # the sweep's other windows: threshold mode against the plain version,
+    # then the same times (a sigma of (window // 2 - 0.5) / 3 gives window)
+    for win in sorted(set(sweep) - set(k1_times)):
+        kern = gaussian_kernel((win // 2 - 0.5) / 3)
+        check(len(kern) == win, f"sweep window {win}: {len(kern)} taps")
+        taps = torch.from_numpy(kern).to(dev)
+        t = time.perf_counter()
+        ref = Wn.frontend_nm(img, kern)
+        sync()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        weak, strong = kfe.frontend(img, taps, (CAP_MN, CAP_MX))
+        sync()
+        expect(u32eq(weak, P.pack_mask(ref >= CAP_MN))
+               and u32eq(strong, P.pack_mask(ref >= CAP_MX)),
+               f"K1 masks at sweep window {win}, {hw}")
+        fn = (lambda taps=taps: kfe.frontend(img, taps, (CAP_MN, CAP_MX)))
+        by = device_ms(fn)
+        kb = kernel_bounds(hw=hw, window=win)["frontend"]
+        k1_times[win] = {
+            "path": kfe.k1_path(win, kfe.max_window(dev))
+            if dev.type == "cuda" else "plain",
+            "ms": time_ms(fn, 10, 3),
+            "device_ms": sum(by.values()) if by else "not measured",
+            "device_by_kernel": by, "plain_ms": plain_ms,
+            "bound_ms": kb["bound_ms"], "bound_by": kb["bound_by"]}
+    k1_times = dict(sorted(k1_times.items()))
     rep["k1"] = {"times": k1_times, "max_abs_err": k1_err,
                  "s": time.perf_counter() - t1}
     log(f"capacity K1: {k1_times}")
@@ -2166,20 +2207,29 @@ def capacity_phase(dev, time_ms, device_ms, hw=SIZES["1080p"],
           f"capacity: {rep['mismatches']} mismatches of {rep['cases']}")
 
     kb = kernel_bounds()
-    t301, t131 = k1_times[301], k4_times[131072]
+    t131 = k4_times[131072]
+
+    def k1_entry(name, win):
+        """The kernels line's entry of K1's ``name`` path at ``win`` taps,
+        with its times at every window that took the path."""
+        t = k1_times[win]
+        on = {w: v for w, v in k1_times.items() if v["path"] == t["path"]}
+        return {"name": name, "route": "cuda",
+                "source": "canny_edge_tpu_torch/kernels/csrc/frontend.cu",
+                "replaces": "canny_edge_tpu/kernels/frontend.py:153",
+                "launches": counts[name], "max_abs_err": k1_err,
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None, "of": "frontend", "window": win,
+                "match": True, "shape": f"{hw[0]}x{hw[1]}, window {win}",
+                "device_ms": t["device_ms"],
+                "ms_by_window": {w: v["ms"] for w, v in on.items()},
+                "device_ms_by_window": {w: v["device_ms"]
+                                        for w, v in on.items()}}
+
     entries = [
-        {"name": "frontend_scratch", "route": "cuda",
-         "source": "canny_edge_tpu_torch/kernels/csrc/frontend.cu",
-         "replaces": "canny_edge_tpu/kernels/frontend.py:153",
-         "launches": counts["frontend_scratch"], "max_abs_err": k1_err,
-         "ms": t301["ms"], "plain_ms": t301["plain_ms"],
-         "bound_ms": kb["frontend_scratch"]["bound_ms"],
-         "bound_by": kb["frontend_scratch"]["bound_by"], "library_ms": None,
-         "match": True, "shape": f"{hw[0]}x{hw[1]}, window 301",
-         "device_ms": t301["device_ms"],
-         "ms_by_window": {w: t["ms"] for w, t in k1_times.items()},
-         "device_ms_by_window": {w: t["device_ms"]
-                                 for w, t in k1_times.items()}},
+        k1_entry("frontend_ring", 263),
+        k1_entry("frontend_scratch", 701),
         {"name": "hysteresis_banded_wide", "route": "cuda",
          "source": "canny_edge_tpu_torch/kernels/csrc/hysteresis_banded.cu",
          "replaces": "canny_edge_tpu/kernels/hysteresis_v2.py:70",
@@ -2201,11 +2251,13 @@ def capacity_phase(dev, time_ms, device_ms, hw=SIZES["1080p"],
 def check_bounds(kernels):
     """Every ``bound_ms`` of the ``kernels`` line is
     ``utils.roofline.kernel_bounds``': a batch row's (``"batch"``) that of
-    its single-frame kernel (``"of"``) at its batch."""
+    its single-frame kernel (``"of"``) at its batch, a row of one of K1's
+    wide paths that of ``"of"`` at its ``"window"``."""
     from canny_edge_tpu_torch.utils.roofline import kernel_bounds
 
     for k in kernels:
-        want = kernel_bounds(batch=k.get("batch"))[k.get("of", k["name"])]
+        want = kernel_bounds(window=k.get("window", 11), batch=k.get(
+            "batch"))[k.get("of", k["name"])]
         check(k["bound_ms"] == want["bound_ms"]
               and k["bound_by"] == want["bound_by"],
               f"{k['name']} bound {k['bound_ms']} {k['bound_by']}, "

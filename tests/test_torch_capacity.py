@@ -1,19 +1,22 @@
 """PyTorch port: every frame JAX computes, the card computes too.
 
-K1 takes any odd window: windows whose tile fits a block's shared memory
-(263 taps on the H100, sigma <= 43.66) take the tile path, wider ones the
-scratch path (the blur through device memory).  K4 takes any width: a band a
+K1 takes any odd window: windows 3 to 103 take the tile path, wider ones the
+ring path (a column strip streamed through a ring of x-pass rows) up to what
+its shared memory holds (613 taps on the H100), wider ones still the scratch
+path (the blur through device memory).  K4 takes any width: a band a
 warp up to 8192 columns, a band a block up to 32768, beyond that several
 words a thread, the band in shared memory where it fits and in device
 memory where it does not.
 
-On the CPU: the port at sigmas on both sides of the tile path's last window
-and at 50 and 100 on every backend against ``golden`` (and once against
-``CannyTPU``), the choice of each path for a given shared-memory limit, and
-K4's plain version at 40000 columns against ``golden``.  On the card
-(marked ``cuda``): both new modes against their plain versions.  Tolerance:
+On the CPU: the port at sigmas 43.66 to 100 (windows 263 to 601) on every
+backend against ``golden`` (and once against ``CannyTPU``), the choice of
+each path for a given shared-memory limit, and K4's plain version at 40000
+columns against ``golden``.  On the card (marked ``cuda``): K1's ring and
+scratch paths and K4's wide path against their plain versions.  Tolerance:
 0 differing pixels everywhere.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -84,25 +87,72 @@ def test_sigma_50_equals_cannytpu(jax_sigma_50):
     np.testing.assert_array_equal(got, golden.canny(_frame(), 50.0, MN, MX))
 
 
-@pytest.mark.parametrize("limit,last", [(H100_SMEM, 263), (101376, 101),
+@pytest.fixture(scope="module")
+def k1_emu(tmp_path_factory):
+    """K1's C source built for the CPU (``tools/cuda_emu``, ~6 s): its own
+    answers for the shared memory and the largest window of a card whose
+    opt-in limit the emulation sets."""
+    from tools.cuda_emu import build
+
+    return build("frontend", tmp_path_factory.mktemp("cuda_emu"))
+
+
+def _max_window_at(lib, limit):
+    """``canny_frontend_max_window`` on a card whose opt-in shared memory a
+    block is ``limit`` bytes."""
+    ctypes.c_int.in_dll(lib, "emu_optin").value = limit
+    try:
+        return lib.canny_frontend_max_window()
+    finally:
+        ctypes.c_int.in_dll(lib, "emu_optin").value = H100_SMEM
+
+
+@pytest.mark.parametrize("limit,last", [(H100_SMEM, 613), (101376, 101),
                                         (49152, 7)])
-def test_k1_path_for_smem_limit(limit, last):
-    """The tile path takes the windows whose tile fits the limit, the
-    scratch path every wider one; 263 on the H100 (227 KB a block)."""
-    assert kfe.max_tile_window(limit) == last
-    assert kfe.tile_smem_bytes(last) <= limit < kfe.tile_smem_bytes(last + 2)
-    for w in (3, 7, last):
-        assert kfe.k1_path(w, kfe.max_tile_window(limit)) == "tile"
-    for w in (last + 2, last + 36, 601, 1001):
-        assert kfe.k1_path(w, kfe.max_tile_window(limit)) == "scratch"
+def test_k1_path_for_smem_limit(k1_emu, limit, last):
+    """Windows 3 to 103 take the tile path, wider ones the ring path, as
+    far as every window up to them fits the limit, the scratch path every
+    wider one; 613 on the H100 (227 KB a block), 101 at 99 KB (the tile of
+    103 taps needs 102160 bytes)."""
+    top = _max_window_at(k1_emu, limit)
+    assert top == last
+    fits = k1_emu.canny_frontend_smem_bytes
+    assert fits(last) <= limit < fits(last + 2)
+    for w in (3, 7):
+        assert kfe.k1_path(w, top) == "tile"
+    for w in (17, 81, 103, 105, 263, 265, 601, last):
+        if w <= last:
+            assert kfe.k1_path(w, top) == ("tile" if w <= 103 else "ring")
+    for w in (last + 2, last + 36, 701, 1001):
+        assert kfe.k1_path(w, top) == "scratch"
 
 
-def test_k1_scratch_floats():
+def test_k1_scratch_floats(k1_emu):
     """The scratch path's float32 scratch: divisors, the row blur over the
-    window's reach and the floored blur, each output column + 4 wide."""
-    assert kfe.scratch_floats(1, 1080, 1920, 601) == (
-        1924 + 1084 + 0 + 1924 * (1084 + 600) + 1924 * 1084)
+    window's reach and the floored blur, each output column + 4 wide; 701
+    taps is past the ring path on the H100."""
+    assert kfe.k1_path(701, _max_window_at(k1_emu, H100_SMEM)) == "scratch"
+    assert kfe.scratch_floats(1, 1080, 1920, 701) == (
+        1924 + 1084 + 0 + 1924 * (1084 + 700) + 1924 * 1084)
     assert kfe.scratch_floats(3, 1, 1, 3) == 12 + 3 * 5 * (5 + 2 + 5)
+
+
+@pytest.mark.parametrize("window,want", [(105, 65600), (263, 117488),
+                                         (601, 228288), (613, 232352)])
+def test_k1_ring_smem_bytes(k1_emu, window, want):
+    """The ring path's shared memory, as the C source computes it: taps,
+    72 + 516 divisors, 36 x 72 blurred floats, 34 x 68 int16 magnitudes,
+    32 + 2c + 8 ring rows of 73 floats (16-byte rounded), 32 staging rows
+    of an odd number of words and 16 bytes to spare; it grows by the ring's
+    two rows a window step.  Window 103 is the tile path's."""
+    c = window // 2
+    ring = ((32 + 2 * c + 8) * 73 * 4 + 15) // 16 * 16
+    sw = (((75 + 2 * c + 3) // 4) | 1) * 4
+    assert sw % 8 == 4 and sw >= 76 + 2 * c
+    assert want == ((window + 3) // 4 * 16 + (72 + 512 + 4) * 4
+                    + 36 * 72 * 4 + 34 * 68 * 2 + ring + 32 * sw + 16)
+    assert k1_emu.canny_frontend_smem_bytes(window) == want
+    assert k1_emu.canny_frontend_smem_bytes(103) == 102160
 
 
 @pytest.mark.parametrize("w,band,asked,want", [
@@ -171,12 +221,18 @@ def test_k4_plain_wide_equals_golden(h, w, band_h):
 
 @pytest.mark.cuda
 def test_card_mode_choice_mirrors_the_library(cuda_device):
-    """The mirrors of the choice equal the library's own answers."""
+    """K1's largest window on the card is the largest whose block fits its
+    shared memory, and the wrapper's choice follows it; K4's mirrors of the
+    choice equal the library's own answers."""
     from canny_edge_tpu_torch.kernels import _build
     from canny_edge_tpu_torch.utils.constants import smem_optin_bytes
 
     limit = smem_optin_bytes(cuda_device)
-    assert kfe.max_window(cuda_device) == kfe.max_tile_window(limit)
+    top = kfe.max_window(cuda_device)
+    fits = _build.load("frontend").canny_frontend_smem_bytes
+    assert fits(top) <= limit < fits(top + 2)
+    assert kfe.k1_path(top, top) != "scratch"
+    assert kfe.k1_path(top + 2, top) == "scratch"
     lib = _build.load("hysteresis_banded")
     assert lib.canny_banded_smem_limit() == limit
     for band, w in ((64, 1920), (8, 32768), (8, 32769), (3, 131072),
@@ -187,12 +243,65 @@ def test_card_mode_choice_mirrors_the_library(cuda_device):
             path == "wide-global")
 
 
+WIDE_SIGMAS = {17: 2.5, 19: 3.0, 31: 5.0, 61: 10.0, 103: 17.0, 105: 17.2,
+               121: 20.0, 263: 43.66, 265: 43.67, 601: 100.0}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("sigma", [43.67, 100.0])
+@pytest.mark.parametrize("win", sorted(WIDE_SIGMAS))
+def test_card_k1_ring_path_equals_plain(cuda_device, win):
+    """Windows from 17 taps on the path each takes (the tile path's
+    unrolled instantiations up to 103, the ring path above) in frame, batch
+    and block mode, NMS map and masks, at shapes off the 64-column strip
+    and the 32-row step (257x333), a single row (1x1000) and a single
+    column (40x1)."""
+    from bench_torch import make_image
+
+    kern = gaussian_kernel(WIDE_SIGMAS[win])
+    assert len(kern) == win
+    path = kfe.k1_path(win, kfe.max_window(cuda_device))
+    assert path == ("tile" if win <= 103 else "ring")
+    taps = torch.from_numpy(kern).to(cuda_device)
+    before = kfe.ring_launches
+    for h, w in ((257, 333), (1, 1000), (40, 1)):
+        imgs = torch.from_numpy(np.stack([make_image(h, w, seed=s)
+                                          for s in range(3)])).to(cuda_device)
+        nm = kfe.frontend(imgs, taps)
+        weak, strong = kfe.frontend(imgs[1], taps, (5, 20))
+        for i in range(3):
+            assert torch.equal(nm[i].to(torch.int32),
+                               window.frontend_nm(imgs[i], kern))
+        ref_w, ref_s = window.frontend_nm(imgs[1], kern, (5, 20))
+        assert torch.equal(weak.view(torch.int32), ref_w.view(torch.int32))
+        assert torch.equal(strong.view(torch.int32), ref_s.view(torch.int32))
+    img = torch.from_numpy(make_image(257, 333, seed=7)).to(cuda_device)
+    r = win // 2 + 2
+    pad = torch.nn.functional.pad(img, (r, r, r, r))
+    for row0, col0, hl, wl in ((0, 0, 129, 167), (60, 90, 100, 150),
+                               (128, 166, 129, 167)):
+        blk_win = pad[row0:row0 + hl + 2 * r,
+                      col0:col0 + wl + 2 * r].contiguous()
+        blk = kfe.frontend_block(blk_win, row0, col0, 257, 333, taps)
+        assert torch.equal(blk.to(torch.int32), window.frontend_block(
+            blk_win, row0, col0, 257, 333, kern))
+        got = kfe.frontend_block(blk_win, row0, col0, 257, 333, taps,
+                                 (5, 20))
+        want = window.frontend_block(blk_win, row0, col0, 257, 333, kern,
+                                     (5, 20))
+        assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, want))
+    assert kfe.ring_launches == before + (12 if path == "ring" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", [116.5, 150.0])
 def test_card_k1_scratch_path_equals_plain(cuda_device, sigma):
+    """Windows past the ring path's (701 and 901 taps) take the scratch
+    path, in batch, threshold and block mode."""
     from bench_torch import make_image
 
     kern = gaussian_kernel(sigma)
+    assert kfe.k1_path(len(kern), kfe.max_window(cuda_device)) == "scratch"
     taps = torch.from_numpy(kern).to(cuda_device)
     before = kfe.scratch_launches
     imgs = torch.from_numpy(np.stack([make_image(257, 333, seed=s)

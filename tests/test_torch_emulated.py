@@ -1,0 +1,167 @@
+"""PyTorch port: K1's CUDA source run on the CPU, under ``tools/cuda_emu``.
+
+The card's compiler is not here.  This builds
+``canny_edge_tpu_torch/kernels/csrc/frontend.cu`` with g++ against
+``tools/cuda_emu`` (every CUDA thread a fiber, the barriers and ballots
+among them, the host's IEEE float32 with no contraction) and holds K1's
+tile, ring and scratch paths, in frame, batch and block mode, NMS map and
+packed masks, equal to the plain front end (``ops/window.py``) at small
+shapes; the emulated card's SM count makes a strip several runs (several
+blocks down a column), so runs, steps, the ring's wrap and its mirror rows
+are all crossed.  Its answer for the largest window of the tile and ring
+paths is the largest whose shared memory fits, at two limits.  What only
+the card shows (that nvcc builds
+the source, its speed) is in the ``cuda``-marked tests.  Tolerance: 0
+differing values.
+"""
+
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+from bench_torch import make_image
+from canny_edge_tpu_torch.kernels import frontend as kfe
+from canny_edge_tpu_torch.ops import window
+from canny_edge_tpu_torch.ops.gaussian import gaussian_kernel
+from canny_edge_tpu_torch.ops.packed import cdiv
+from tools.cuda_emu import build
+
+MN, MX = 5, 20
+
+
+@pytest.fixture(scope="module")
+def k1(tmp_path_factory):
+    """K1 built for the CPU, once for the module (~6 s)."""
+    return build("frontend", tmp_path_factory.mktemp("cuda_emu"))
+
+
+def _card(lib, sms, optin=232448):
+    ctypes.c_int.in_dll(lib, "emu_sms").value = sms
+    ctypes.c_int.in_dll(lib, "emu_optin").value = optin
+
+
+def _frame(h, w, seed=0):
+    """The headline frame with a disc of 255 from its top-left corner:
+    edges that a wide blur keeps."""
+    img = make_image(h, w, seed=seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img[np.hypot(xx, yy) < min(h, w) / 2] = 255
+    return torch.from_numpy(img)
+
+
+def _outputs(lead, h, w, thresholds):
+    if thresholds is None:
+        nm = torch.zeros((*lead, h, w), dtype=torch.int16)
+        return (nm,), (0, 0, 0, nm.data_ptr(), None, None)
+    weak = torch.zeros((*lead, h, cdiv(w, 32)), dtype=torch.uint32)
+    strong = torch.zeros_like(weak)
+    return (weak, strong), (1, *thresholds, None, weak.data_ptr(),
+                            strong.data_ptr())
+
+
+def _same(got, want):
+    return torch.equal(got.view(torch.int32) if got.dtype == torch.uint32
+                       else got.to(torch.int32),
+                       want.view(torch.int32) if want.dtype == torch.uint32
+                       else want)
+
+
+@pytest.mark.parametrize("limit", [232448, 101376])
+def test_emulated_max_window_is_the_mirror(k1, limit):
+    """The largest window mirrors the shared memory a window takes: every
+    odd window up to it fits the limit, the next does not."""
+    _card(k1, 4, optin=limit)
+    top = k1.canny_frontend_max_window()
+    _card(k1, 4)
+    fits = k1.canny_frontend_smem_bytes
+    assert top >= 101
+    assert all(fits(w) <= limit for w in range(3, top + 1, 2))
+    assert fits(top + 2) > limit
+
+
+# (window, frame, emulated SMs): the tile path at 11, 17 and 103, the ring
+# path from 105 (one run, and runs of 32 to 96 rows), sigma 43.66 and 100
+# (263, 601 taps)
+FRAMES = [(11, (70, 100), 4), (17, (40, 70), 64), (103, (70, 100), 4),
+          (105, (130, 70), 64), (121, (96, 130), 1), (263, (150, 96), 2),
+          (601, (120, 64), 1)]
+
+
+@pytest.mark.parametrize("win,hw,sms", FRAMES)
+def test_emulated_frame_equals_plain(k1, win, hw, sms):
+    kern = gaussian_kernel((win // 2 - 0.5) / 3)
+    assert len(kern) == win
+    _card(k1, sms)
+    img = _frame(*hw, seed=win)
+    taps = torch.from_numpy(kern)
+    ref = window.frontend_nm(img, kern)
+    assert (ref > 0).any()
+    for thr in (None, (MN, MX)):
+        got, out = _outputs((), *hw, thr)
+        assert k1.canny_frontend(img.data_ptr(), 1, *hw, taps.data_ptr(),
+                                 win, *out, None) == 0
+        want = (ref,) if thr is None else window.frontend_nm(img, kern, thr)
+        assert all(_same(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("hw", [(37, 45), (1, 50), (45, 1)])
+def test_emulated_batch_equals_plain(k1, hw):
+    """A batch of 3 frames in one launch of the ring path (blockIdx.z the
+    frame), at shapes whose frames start off 4-byte boundaries, a single
+    row, a single column."""
+    kern = gaussian_kernel(17.5)
+    assert len(kern) == 107
+    _card(k1, 16)
+    imgs = torch.stack([_frame(*hw, seed=s) for s in range(3)])
+    taps = torch.from_numpy(kern)
+    (nm,), out = _outputs((3,), *hw, None)
+    assert k1.canny_frontend(imgs.data_ptr(), 3, *hw, taps.data_ptr(),
+                             len(kern), *out, None) == 0
+    for i in range(3):
+        assert _same(nm[i], window.frontend_nm(imgs[i], kern))
+
+
+@pytest.mark.parametrize("row0,col0,hl,wl", [(0, 0, 45, 75), (45, 75, 45, 75),
+                                            (20, 30, 40, 64),
+                                            (70, 120, 40, 64)])
+def test_emulated_block_equals_plain(k1, row0, col0, hl, wl):
+    """Block mode on the ring path: a window with a halo of window // 2 + 2
+    at its global offsets, blocks at the corner, inside and past the
+    image."""
+    H, W = 90, 150
+    kern = gaussian_kernel(17.5)
+    r = len(kern) // 2 + 2
+    _card(k1, 4)
+    pad = torch.nn.functional.pad(_frame(H, W, seed=3), (r, r + 64, r, r + 64))
+    win = pad[row0:row0 + hl + 2 * r, col0:col0 + wl + 2 * r].contiguous()
+    taps = torch.from_numpy(kern)
+    for thr in (None, (MN, MX)):
+        got, out = _outputs((), hl, wl, thr)
+        assert k1.canny_frontend_block(win.data_ptr(), hl, wl, r, row0, col0,
+                                       H, W, taps.data_ptr(), len(kern), *out,
+                                       None) == 0
+        want = window.frontend_block(win, row0, col0, H, W, kern, thr)
+        assert all(_same(g, w) for g, w in zip(got, (want,) if thr is None
+                                               else want))
+
+
+def test_emulated_scratch_path_past_the_ring(k1):
+    """Past the ring's 613 taps the ring entry refuses and the scratch path
+    computes the frame."""
+    kern = gaussian_kernel(103.0)
+    assert len(kern) == 619
+    _card(k1, 4)
+    h, w = 40, 64
+    img = _frame(h, w)
+    taps = torch.from_numpy(kern)
+    (nm,), out = _outputs((), h, w, None)
+    assert k1.canny_frontend(img.data_ptr(), 1, h, w, taps.data_ptr(), 619,
+                             *out, None) != 0
+    n = kfe.scratch_floats(1, h, w, 619)
+    scratch = torch.zeros(n, dtype=torch.float32)
+    assert k1.canny_frontend_large(img.data_ptr(), 1, 0, h, w, 0, 0, h, w,
+                                   taps.data_ptr(), 619, *out,
+                                   scratch.data_ptr(), n, None) == 0
+    assert _same(nm, window.frontend_nm(img, kern))
