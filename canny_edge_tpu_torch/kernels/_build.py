@@ -44,7 +44,7 @@ SIGNATURES = {
     },
     "hysteresis_packed": {
         "canny_hysteresis_packed": [_P, _P, _P, _I, _I, _I, _P, _P, _I, _I,
-                                    _I, _I, _I, _I, _P, _L, _P],
+                                    _I, _I, _I, _I, _P, _P, _L, _P],
         "canny_hysteresis_packed_scratch_words": [_I, _I, _I],
     },
     "hysteresis_dilate": {

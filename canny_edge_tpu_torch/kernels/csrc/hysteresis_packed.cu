@@ -105,6 +105,7 @@ struct Args {
   u64* flags;          // 2 x B x ntiles dirty tokens
   u64* any;            // 2 "anything marked" tokens
   int* steps;          // the number of steps run
+  u64* total_steps;    // the card's running sum of every launch's steps
   u64 token;           // launch sequence number << 32
 };
 
@@ -223,7 +224,10 @@ __global__ void __launch_bounds__(THREADS, 1) flood_kernel(Args a) {
     ++step;
     if (nxt != tok + 1) break;
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *a.steps = step;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *a.steps = step;
+    atomicAdd(a.total_steps, (u64)step);
+  }
   if (a.out16 != nullptr)
     unpack_phase(a.edges, a.B * H, W, a.out16,
                  (size_t)blockIdx.x * THREADS + threadIdx.x,
@@ -275,14 +279,17 @@ int canny_hysteresis_packed_scratch_words(int B, int H, int W) {
 // out16 == null -> edges is the packed output.  strict != 0: the
 // strict-reference fix of each frame's pixel (0, 1), with its pixel (0, 0)
 // at row quirk_row, word quirk_word of the frame's masks.  The step count
-// (the most any frame needed) lands in the last scratch word (as an int).
+// (the most any frame needed) lands in the last scratch word (as an int),
+// and is added to *total_steps, a u64 word of the device that every launch
+// adds to (launches on other streams too, hence an atomic add).
 // One launch on `stream`; returns cudaGetLastError().
 int canny_hysteresis_packed(void* weak, void* strong, const void* nm,
                             int nm_bytes, int lo, int hi, void* edges,
                             void* out16, int B, int H, int W, int strict,
                             int quirk_row, int quirk_word, void* scratch,
-                            unsigned long long token, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0
+                            void* total_steps, unsigned long long token,
+                            void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || total_steps == nullptr
       || (nm != nullptr && nm_bytes != 2 && nm_bytes != 4)
       || (strict && (quirk_row < 0 || quirk_row >= H || quirk_word < 0
                      || quirk_word >= (W + 31) / 32)))
@@ -314,6 +321,7 @@ int canny_hysteresis_packed(void* weak, void* strong, const void* nm,
   a.flags = (u64*)scratch;
   a.any = a.flags + 2 * (size_t)ntiles;
   a.steps = (int*)(a.any + 2);
+  a.total_steps = (u64*)total_steps;
   a.token = token;
   // one warp a tile; with a pack or an unpack to do, also a thread a word
   long long want = ntiles;

@@ -26,6 +26,7 @@ from ..ops.packed import cdiv
 from ..ops.thresholds import threshold_bound
 from ..ops.window import frontend_block as frontend_block_plain
 from ..ops.window import frontend_nm as frontend_plain
+from ..utils import trace
 from . import _build
 from ._scratch import Scratch
 
@@ -100,11 +101,12 @@ def _bounds(thresholds):
 
 
 def _launch(src: torch.Tensor, taps: torch.Tensor, thresholds, geom, entry,
-            lead=()):
+            lead=(), prep=None):
     """Check the device, allocate the outputs, launch K1 on ``geom = (B,
     halo, oh, ow, row0, col0, H, W)``: the tile or ring path through
     ``entry = (name, args)`` where the window allows it, else the scratch
-    path."""
+    path.  ``prep``: the caller's open ``k1.prep`` span, which ends at the
+    launch."""
     dev = src.device
     if dev.type != "cuda" or taps.device != dev:
         raise ValueError(f"image on {dev} and taps on {taps.device}: "
@@ -129,8 +131,8 @@ def _launch(src: torch.Tensor, taps: torch.Tensor, thresholds, geom, entry,
         stream = _build.stream_handle(dev)
         if path != "scratch":
             name, args = entry
-            err = getattr(lib, name)(src.data_ptr(), *args, taps.data_ptr(),
-                                     window, *out, stream)
+            args = (src.data_ptr(), *args, taps.data_ptr(), window, *out,
+                    stream)
         else:
             name = "canny_frontend_large"
             n = scratch_floats(b, oh, ow, window)
@@ -139,10 +141,15 @@ def _launch(src: torch.Tensor, taps: torch.Tensor, thresholds, geom, entry,
                 scr = _scratch.create(dev, stream, (b, oh, ow, window), 0)
                 scr["floats"] = torch.empty(n, dtype=torch.float32,
                                             device=dev)
-            err = lib.canny_frontend_large(
-                src.data_ptr(), *geom, taps.data_ptr(), window, *out,
-                scr["floats"].data_ptr(), n, stream)
+            args = (src.data_ptr(), *geom, taps.data_ptr(), window, *out,
+                    scr["floats"].data_ptr(), n, stream)
+        if prep:
+            trace.end("k1.prep", prep)
+        run = trace.RECORDING and trace.begin()
+        err = getattr(lib, name)(*args)
     _build.check(err, f"{name} launch")
+    if run:
+        trace.end("k1.launch", run)
     return path, (nm if thresholds is None else (weak, strong))
 
 
@@ -167,6 +174,7 @@ def frontend(img: torch.Tensor, taps: torch.Tensor, thresholds=None):
     ``thresholds``: optional ``(min_val, max_val)``, compared as JAX
     compares an integer map with them (:func:`_bounds`).
     """
+    prep = trace.RECORDING and trace.begin()
     thresholds = _bounds(thresholds)
     if img.dtype != torch.uint8 or img.dim() not in (2, 3) \
             or img.numel() == 0:
@@ -175,12 +183,20 @@ def frontend(img: torch.Tensor, taps: torch.Tensor, thresholds=None):
                          f"{tuple(img.shape)}")
     window = _check_taps(taps)
     if img.device.type == "cpu":
-        if img.dim() == 3:
-            res = [frontend(f, taps, thresholds) for f in img]
-            return (torch.stack(res) if thresholds is None else
-                    tuple(torch.stack(m) for m in zip(*res)))
-        res = frontend_plain(img, taps.cpu().numpy(), thresholds)
-        return res.to(torch.int16) if thresholds is None else res
+        if prep:
+            trace.end("k1.prep", prep)
+        run = trace.RECORDING and trace.begin()
+        host_taps = taps.cpu().numpy()
+        res = [frontend_plain(f, host_taps, thresholds)
+               for f in (img if img.dim() == 3 else (img,))]
+        if thresholds is None:
+            res = [r.to(torch.int16) for r in res]
+        if run:
+            trace.end("k1.launch", run)
+        if img.dim() == 2:
+            return res[0]
+        return (torch.stack(res) if thresholds is None else
+                tuple(torch.stack(m) for m in zip(*res)))
     img = img.contiguous()
     h, w = img.shape[-2:]
     per_launch = MAX_BATCH
@@ -190,9 +206,12 @@ def frontend(img: torch.Tensor, taps: torch.Tensor, thresholds=None):
                                 // scratch_floats(1, h, w, window)))
     parts = []
     for chunk in (img.split(per_launch) if img.dim() == 3 else (img,)):
+        if parts:
+            prep = trace.RECORDING and trace.begin()
         b = chunk.shape[0] if chunk.dim() == 3 else 1
         path, res = _launch(chunk, taps, thresholds, (b, 0, h, w, 0, 0, h, w),
-                            ("canny_frontend", (b, h, w)), chunk.shape[:-2])
+                            ("canny_frontend", (b, h, w)), chunk.shape[:-2],
+                            prep)
         parts.append(res)
         _count(path, b)
     if len(parts) == 1:
@@ -235,6 +254,7 @@ def frontend_block(window: torch.Tensor, row0: int, col0: int, H: int,
     ``(hl, wl)``, or with ``thresholds`` its packed ``(weak, strong)``
     masks ``(hl, ceil(wl/32))``; pixels past the image are 0 and clear.
     """
+    prep = trace.RECORDING and trace.begin()
     thresholds = _bounds(thresholds)
     r = _check_taps(taps) // 2 + 2
     hl, wl = window.shape[-2] - 2 * r, window.shape[-1] - 2 * r
@@ -244,12 +264,17 @@ def frontend_block(window: torch.Tensor, row0: int, col0: int, H: int,
     if row0 < 0 or col0 < 0 or H < 1 or W < 1:
         raise ValueError(f"block at ({row0}, {col0}) of a {H}x{W} image")
     if window.device.type == "cpu":
+        if prep:
+            trace.end("k1.prep", prep)
+        run = trace.RECORDING and trace.begin()
         res = frontend_block_plain(window, row0, col0, H, W,
                                    taps.cpu().numpy(), thresholds)
+        if run:
+            trace.end("k1.launch", run)
         return res.to(torch.int16) if thresholds is None else res
     geom = (1, r, hl, wl, row0, col0, H, W)
     path, res = _launch(window.contiguous(), taps, thresholds, geom,
                         ("canny_frontend_block",
-                         (hl, wl, r, row0, col0, H, W)))
+                         (hl, wl, r, row0, col0, H, W)), prep=prep)
     _count(path, 1, block=True)
     return res

@@ -17,6 +17,10 @@ and ``unpack_edges``, a frame at a time; a CUDA tensor goes to the kernel,
 for every shape from 1x1 up, or raises.  On the card the thresholds, the
 packing and the unpacking run in the kernel's own file, never in plain
 PyTorch.
+
+Every launch adds its flood steps to a word of its card, on the card, and
+every call of the plain version adds its rounds to :data:`cpu_steps`, in
+the same unit: :func:`flood_steps` reads the total.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 
 from ..ops.packed import cdiv, hysteresis_packed_masks, pack_mask, unpack_edges
 from ..ops.thresholds import at_least, threshold_bound
+from ..utils import trace
 from . import _build
 from ._scratch import Scratch, buffer, next_token
 
@@ -34,15 +39,44 @@ from ._scratch import Scratch, buffer, next_token
 launches = 0
 quirk_launches = 0
 batch_launches = 0
+# flood rounds of the plain version, the most any frame of a call needed;
+# a card's launches add their grid-wide steps to that card's word in
+# _step_words
+cpu_steps = 0
 
 _scratch = Scratch()
+_step_words: dict[int, torch.Tensor] = {}
+
+
+def flood_steps() -> int:
+    """The flood steps run so far in this process, a call's count each: a
+    launch's grid-wide steps (the kernel steps until no frame of its batch
+    changes), summed on its card, and a plain call's rounds, the most any
+    of its frames needed.  Over a stretch of calls, the count less the
+    count before, over the launches (:data:`launches`) less those before,
+    is the steps a launch.  Waits for every card that has launched K2."""
+    total = cpu_steps
+    for idx, word in _step_words.items():
+        torch.cuda.synchronize(idx)
+        total += int(word.item())
+    return total
+
+
+def _step_word(dev) -> torch.Tensor:
+    """The card's int64 word that its launches add their steps to."""
+    word = _step_words.get(dev.index)
+    if word is None:
+        word = _step_words[dev.index] = torch.zeros(1, dtype=torch.int64,
+                                                    device=dev)
+    return word
 
 
 def _launch(dev, b, h, w, *, weak=None, strong=None, nm=None, lo=0, hi=0,
-            int16_out, strict, quirk_rw=(0, 0), lead=()):
+            int16_out, strict, quirk_rw=(0, 0), lead=(), prep=None):
     """One call of the kernel on ``b`` frames (``lead``: the output's leading
     axes); returns ``(output, steps)`` with ``steps`` a 0-d view of the
-    scratch that the next call on this shape overwrites."""
+    scratch that the next call on this shape overwrites.  ``prep``: the
+    caller's open ``k2.prep`` span, which ends at the launch."""
     global launches, quirk_launches, batch_launches
     lib = _build.load("hysteresis_packed")
     with _build.device_guard(dev):
@@ -61,18 +95,41 @@ def _launch(dev, b, h, w, *, weak=None, strong=None, nm=None, lo=0, hi=0,
         else:
             out = edges = torch.empty((*lead, h, cdiv(w, 32)),
                                       dtype=torch.uint32, device=dev)
+        total = _step_word(dev)
+        if prep:
+            trace.end("k2.prep", prep)
+        run = trace.RECORDING and trace.begin()
         err = lib.canny_hysteresis_packed(
             weak.data_ptr(), strong.data_ptr(),
             None if nm is None else nm.data_ptr(),
             0 if nm is None else nm.element_size(), lo, hi,
             edges.data_ptr(), out.data_ptr() if int16_out else None, b, h, w,
             int(bool(strict)), *quirk_rw, entry["ctl"].data_ptr(),
-            next_token(), stream)
+            total.data_ptr(), next_token(), stream)
     _build.check(err, "canny_hysteresis_packed launch")
+    if run:
+        trace.end("k2.launch", run)
     launches += 1
     quirk_launches += bool(strict) and tuple(quirk_rw) != (0, 0)
     batch_launches += b > 1
     return out, entry["ctl"][-1]
+
+
+def _plain(weak, strong, h, w, *, strict, quirk_rw=(0, 0), int16_out):
+    """The plain version on packed masks ``(H, Wd)`` or ``(B, H, Wd)``, a
+    frame at a time: ``(output, rounds)``, the most rounds any frame
+    needed, as the kernel counts its steps; they go into
+    :data:`cpu_steps`."""
+    global cpu_steps
+    outs, rounds = [], 0
+    for wf, sf in zip(weak.reshape(-1, *weak.shape[-2:]),
+                      strong.reshape(-1, *strong.shape[-2:])):
+        out, steps = hysteresis_packed_masks(wf, sf, h, w, strict=strict,
+                                             quirk_rw=quirk_rw)
+        rounds = max(rounds, steps)
+        outs.append(unpack_edges(out, w) if int16_out else out)
+    cpu_steps += rounds
+    return (outs[0] if weak.dim() == 2 else torch.stack(outs)), rounds
 
 
 def _frames(t: torch.Tensor, what: str) -> int:
@@ -102,6 +159,7 @@ def hysteresis_packed(weak: torch.Tensor, strong: torch.Tensor, height: int,
     also return the number of flood steps (kernel: grid-wide steps, a 0-d
     device tensor; CPU: the plain version's rounds).
     """
+    prep = trace.RECORDING and trace.begin()
     shape = (height, cdiv(width, 32))
     b = _frames(weak, "weak")
     if weak.dim() == 3:
@@ -122,20 +180,18 @@ def hysteresis_packed(weak: torch.Tensor, strong: torch.Tensor, height: int,
         raise ValueError(f"quirk_rw {tuple(quirk_rw)} outside the masks "
                          f"{shape[-2:]}")
     if weak.device.type == "cpu":
-        if weak.dim() == 3:
-            return torch.stack([
-                hysteresis_packed(wf, sf, height, width, strict=strict,
-                                  quirk_rw=quirk_rw, edges_int16=edges_int16)
-                for wf, sf in zip(weak, strong)])
-        out, steps = hysteresis_packed_masks(weak, strong, height, width,
-                                             strict=strict, quirk_rw=quirk_rw)
-        if edges_int16:
-            out = unpack_edges(out, width)
+        if prep:
+            trace.end("k2.prep", prep)
+        run = trace.RECORDING and trace.begin()
+        out, steps = _plain(weak, strong, height, width, strict=strict,
+                            quirk_rw=quirk_rw, int16_out=edges_int16)
+        if run:
+            trace.end("k2.launch", run)
     elif weak.device.type == "cuda":
         out, steps = _launch(
             weak.device, b, height, width, weak=weak.contiguous(),
             strong=strong.contiguous(), int16_out=edges_int16, strict=strict,
-            quirk_rw=quirk_rw, lead=weak.shape[:-2])
+            quirk_rw=quirk_rw, lead=weak.shape[:-2], prep=prep)
         if return_steps:
             steps = steps.clone()
     else:
@@ -183,6 +239,7 @@ def hysteresis_packed_nm(nm: torch.Tensor, min_val: int, max_val: int, *,
     by :func:`hysteresis_packed_pallas_masks`.
     """
     del inner_dilate
+    prep = trace.RECORDING and trace.begin()
     if nm.dim() not in (2, 3) or nm.numel() == 0 \
             or nm.dtype not in (torch.int16, torch.int32):
         raise ValueError("expected a non-empty int16/int32 (H, W) or (B, H, W) "
@@ -195,20 +252,19 @@ def hysteresis_packed_nm(nm: torch.Tensor, min_val: int, max_val: int, *,
     min_val, max_val = (threshold_bound(t, nm.dtype)
                         for t in (min_val, max_val))
     if nm.device.type == "cpu":
-        if nm.dim() == 3:
-            return torch.stack([
-                hysteresis_packed_nm(f, min_val, max_val, strict=strict,
-                                     packed_out=packed_out) for f in nm])
-        out, steps = hysteresis_packed_masks(
-            pack_mask(at_least(nm, min_val)),
-            pack_mask(at_least(nm, max_val)), h, w, strict=strict)
-        if not packed_out:
-            out = unpack_edges(out, w)
+        if prep:
+            trace.end("k2.prep", prep)
+        run = trace.RECORDING and trace.begin()
+        out, steps = _plain(pack_mask(at_least(nm, min_val)),
+                            pack_mask(at_least(nm, max_val)), h, w,
+                            strict=strict, int16_out=not packed_out)
+        if run:
+            trace.end("k2.launch", run)
     elif nm.device.type == "cuda":
         out, steps = _launch(nm.device, b, h, w, nm=nm.contiguous(),
                              lo=min_val, hi=max_val,
                              int16_out=not packed_out, strict=strict,
-                             lead=nm.shape[:-2])
+                             lead=nm.shape[:-2], prep=prep)
         if return_steps:
             steps = steps.clone()
     else:

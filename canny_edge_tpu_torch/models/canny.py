@@ -32,6 +32,7 @@ from ..ops.packed import cdiv
 from ..ops.packed import hysteresis_packed as hysteresis_packed_plain
 from ..ops.thresholds import threshold_int32
 from ..ops.window import frontend_nm
+from ..utils import trace
 
 MODES = ("component", "strict-reference")
 BACKENDS = ("fused", "pallas", "xla")
@@ -114,20 +115,30 @@ def canny_fn(img, min_val, max_val, *, kernel_vals, hysteresis_steps=4,
     empty map, as JAX's does (:func:`_empty`).
     """
     del hysteresis_steps
-    strict = _strict(hysteresis_mode)
-    _check_backend(backend)
-    img = to_device(img, device)
-    if (out := _empty(img, backend)) is not None:
-        return out
-    if img.dim() == 3:
-        return canny_fn_batched(img, min_val, max_val,
-                                kernel_vals=kernel_vals, backend=backend,
-                                hysteresis_mode=hysteresis_mode)
-    if backend == "xla":
-        return hysteresis_packed_plain(
-            frontend_nm(img, _host_taps(kernel_vals)), min_val, max_val,
-            strict=strict)
-    return _canny_frames(img, min_val, max_val, kernel_vals, backend, strict)
+    root = trace.RECORDING and trace.entry()
+    try:
+        chk = root and trace.begin()
+        strict = _strict(hysteresis_mode)
+        _check_backend(backend)
+        img = to_device(img, device)
+        out = _empty(img, backend)
+        if chk:
+            trace.end("entry.check", chk)
+        if out is not None:
+            return out
+        if img.dim() == 3:
+            return canny_fn_batched(img, min_val, max_val,
+                                    kernel_vals=kernel_vals, backend=backend,
+                                    hysteresis_mode=hysteresis_mode)
+        if backend == "xla":
+            return hysteresis_packed_plain(
+                frontend_nm(img, _host_taps(kernel_vals)), min_val, max_val,
+                strict=strict)
+        return _canny_frames(img, min_val, max_val, kernel_vals, backend,
+                             strict)
+    finally:
+        if root:
+            trace.end_entry(root)
 
 
 def _canny_frames(img, min_val, max_val, kernel_vals, backend, strict):
@@ -152,14 +163,23 @@ def canny_fn_packed(img, min_val, max_val, *, kernel_vals,
     a batch is one launch of each.  ``img``, ``kernel_vals``, ``device``: as
     in :func:`canny_fn`; no rows or no frames give empty words.
     """
-    strict = _strict(hysteresis_mode)
-    img = to_device(img, device)
-    if (out := _empty(img, "fused", packed=True)) is not None:
-        return out
-    h, w = img.shape[-2:]
-    weak, strong = frontend(img, taps_tensor(kernel_vals, img.device),
-                            (min_val, max_val))
-    return hysteresis_packed(weak, strong, h, w, strict=strict)
+    root = trace.RECORDING and trace.entry()
+    try:
+        chk = root and trace.begin()
+        strict = _strict(hysteresis_mode)
+        img = to_device(img, device)
+        out = _empty(img, "fused", packed=True)
+        if chk:
+            trace.end("entry.check", chk)
+        if out is not None:
+            return out
+        h, w = img.shape[-2:]
+        weak, strong = frontend(img, taps_tensor(kernel_vals, img.device),
+                                (min_val, max_val))
+        return hysteresis_packed(weak, strong, h, w, strict=strict)
+    finally:
+        if root:
+            trace.end_entry(root)
 
 
 def canny_fn_batched(imgs, min_val, max_val, *, kernel_vals,
@@ -170,20 +190,30 @@ def canny_fn_batched(imgs, min_val, max_val, *, kernel_vals,
     of each stage for the batch, on ``xla`` :func:`canny_fn` a frame at a
     time.  Frames of no rows, or no frames, give an empty map as JAX's do
     (:func:`_empty`)."""
-    strict = _strict(hysteresis_mode)
-    _check_backend(backend)
-    imgs = to_device(imgs, device)
-    if imgs.dim() != 3:
-        raise ValueError(f"expected a (B, H, W) batch, got "
-                         f"{tuple(imgs.shape)}")
-    if (out := _empty(imgs, backend)) is not None:
-        return out
-    if backend == "xla":
-        return torch.stack([
-            canny_fn(f, min_val, max_val, kernel_vals=kernel_vals,
-                     hysteresis_steps=hysteresis_steps, backend=backend,
-                     hysteresis_mode=hysteresis_mode) for f in imgs])
-    return _canny_frames(imgs, min_val, max_val, kernel_vals, backend, strict)
+    root = trace.RECORDING and trace.entry()
+    try:
+        chk = root and trace.begin()
+        strict = _strict(hysteresis_mode)
+        _check_backend(backend)
+        imgs = to_device(imgs, device)
+        if imgs.dim() != 3:
+            raise ValueError(f"expected a (B, H, W) batch, got "
+                             f"{tuple(imgs.shape)}")
+        out = _empty(imgs, backend)
+        if chk:
+            trace.end("entry.check", chk)
+        if out is not None:
+            return out
+        if backend == "xla":
+            return torch.stack([
+                canny_fn(f, min_val, max_val, kernel_vals=kernel_vals,
+                         hysteresis_steps=hysteresis_steps, backend=backend,
+                         hysteresis_mode=hysteresis_mode) for f in imgs])
+        return _canny_frames(imgs, min_val, max_val, kernel_vals, backend,
+                             strict)
+    finally:
+        if root:
+            trace.end_entry(root)
 
 
 def canny_with_intermediates(img, min_val, max_val, *, kernel_vals,
@@ -273,35 +303,70 @@ class CannyTorch:
     def _input(self, img):
         return uint8_input(img, self.device)
 
+    # Each method is the root span of its request (``entry``), and its own
+    # checks are ``entry.check`` (``utils/trace.py``).
+
     def __call__(self, img, min_val: int, max_val: int):
         """(H, W) -> (H, W) int16 {0, 255} (:func:`canny_fn`)."""
-        self._validate(img, min_val, max_val)
-        return canny_fn(self._input(img), *_truncated(min_val, max_val),
-                        kernel_vals=self.taps, backend=self.backend,
-                        hysteresis_mode=self.hysteresis_mode)
+        root = trace.RECORDING and trace.entry()
+        try:
+            chk = root and trace.begin()
+            self._validate(img, min_val, max_val)
+            img, bounds = self._input(img), _truncated(min_val, max_val)
+            if chk:
+                trace.end("entry.check", chk)
+            return canny_fn(img, *bounds, kernel_vals=self.taps,
+                            backend=self.backend,
+                            hysteresis_mode=self.hysteresis_mode)
+        finally:
+            if root:
+                trace.end_entry(root)
 
     def packed(self, img, min_val: int, max_val: int):
         """Edge bitmask (H, ceil(W/32)) uint32 (:func:`canny_fn_packed`)."""
-        self._validate(img, min_val, max_val)
-        return canny_fn_packed(self._input(img),
-                               *_truncated(min_val, max_val),
-                               kernel_vals=self.taps,
-                               hysteresis_mode=self.hysteresis_mode)
+        root = trace.RECORDING and trace.entry()
+        try:
+            chk = root and trace.begin()
+            self._validate(img, min_val, max_val)
+            img, bounds = self._input(img), _truncated(min_val, max_val)
+            if chk:
+                trace.end("entry.check", chk)
+            return canny_fn_packed(img, *bounds, kernel_vals=self.taps,
+                                   hysteresis_mode=self.hysteresis_mode)
+        finally:
+            if root:
+                trace.end_entry(root)
 
     def batch(self, imgs, min_val: int, max_val: int):
         """(B, H, W) -> (B, H, W) int16 {0, 255} (:func:`canny_fn_batched`)."""
-        return canny_fn_batched(self._batch_input(imgs, min_val, max_val),
-                                *_truncated(min_val, max_val),
-                                kernel_vals=self.taps,
-                                backend=self.backend,
-                                hysteresis_mode=self.hysteresis_mode)
+        root = trace.RECORDING and trace.entry()
+        try:
+            chk = root and trace.begin()
+            imgs = self._batch_input(imgs, min_val, max_val)
+            bounds = _truncated(min_val, max_val)
+            if chk:
+                trace.end("entry.check", chk)
+            return canny_fn_batched(imgs, *bounds, kernel_vals=self.taps,
+                                    backend=self.backend,
+                                    hysteresis_mode=self.hysteresis_mode)
+        finally:
+            if root:
+                trace.end_entry(root)
 
     def batch_packed(self, imgs, min_val: int, max_val: int):
         """(B, H, W) -> (B, H, ceil(W/32)) uint32 edge bitmasks."""
-        return canny_fn_packed(self._batch_input(imgs, min_val, max_val),
-                               *_truncated(min_val, max_val),
-                               kernel_vals=self.taps,
-                               hysteresis_mode=self.hysteresis_mode)
+        root = trace.RECORDING and trace.entry()
+        try:
+            chk = root and trace.begin()
+            imgs = self._batch_input(imgs, min_val, max_val)
+            bounds = _truncated(min_val, max_val)
+            if chk:
+                trace.end("entry.check", chk)
+            return canny_fn_packed(imgs, *bounds, kernel_vals=self.taps,
+                                   hysteresis_mode=self.hysteresis_mode)
+        finally:
+            if root:
+                trace.end_entry(root)
 
     def with_intermediates(self, img, min_val: int, max_val: int):
         """The stage path on ``device`` with its intermediates: see
