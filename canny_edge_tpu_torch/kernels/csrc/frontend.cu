@@ -26,6 +26,8 @@
 //            section "Wide windows" below);
 //   scratch  any wider window (canny_frontend_large, the last section): the
 //            blur through device memory, then the same back half on tiles.
+// canny_run_plan (the last entry) runs one request of the fused pipeline
+// from a launch plan: K1 on the tile or ring path, then K2 behind it.
 // The tile path:
 //   load    the uint8 tile with its halo (window/2 + 2 texels), zero filled
 //           off the image; 16-byte cp.async where the row address allows
@@ -1234,6 +1236,55 @@ int canny_frontend_large(const void* img, int B, int halo, int oh, int ow,
   return run_large(f, (const float*)taps, window, packed, mn, mx, nm_out,
                    weak, strong, (float*)scratch, scratch_floats,
                    (cudaStream_t)stream);
+}
+
+// K2's C entry, canny_hysteresis_packed (csrc/hysteresis_packed.cu, its own
+// library), as a launch plan holds it.
+typedef int (*FloodEntry)(void* weak, void* strong, const void* nm,
+                          int nm_bytes, int lo, int hi, void* edges,
+                          void* out16, int B, int H, int W, int strict,
+                          int quirk_row, int quirk_word, void* scratch,
+                          void* total_steps, unsigned long long token,
+                          void* stream);
+
+// A launch plan of the fused pipeline (kernels/plan.py:Args, field for
+// field): everything a request on a whole (B, H, W) batch needs but its
+// input, its output and its token.
+struct Plan {
+  const void* taps;     // float32 (window), 3 <= window <= max window
+  void* weak;           // K1's masks, K2's inputs: uint32 (B, H, ceil(W/32))
+  void* strong;
+  void* edges;          // K2's packed edges where the output is int16 (B,
+                        // H, W); null: the output is the packed edges
+  void* scratch;        // K2's control words
+  void* total_steps;    // the card's u64 step word
+  void* stream;
+  FloodEntry flood;
+  int device, B, H, W, window, mn, mx, strict;
+};
+
+// One request of a plan: K1 from `img` (uint8 (B, H, W)) into the plan's
+// masks with its bounds, then K2 (strict at pixel (0, 0), a fresh `token`)
+// into `out`, both on the plan's stream, with the plan's device current
+// for the call.  Returns 0, K1's error, or minus K2's error.
+int canny_run_plan(const void* plan, const void* img, void* out,
+                   unsigned long long token) {
+  const Plan& p = *(const Plan*)plan;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev != p.device) e = cudaSetDevice(p.device);
+  if (e != cudaSuccess) return (int)e;
+  const Frame f{(const uint8_t*)img, p.H, p.W, 0, p.H, p.W, 0, 0, p.H, p.W,
+                p.B};
+  int err = run(f, p.taps, p.window, 1, p.mn, p.mx, nullptr, p.weak,
+                p.strong, p.stream);
+  if (err == 0)
+    err = -p.flood(p.weak, p.strong, nullptr, 0, 0, 0,
+                   p.edges ? p.edges : out, p.edges ? out : nullptr, p.B,
+                   p.H, p.W, p.strict, 0, 0, p.scratch, p.total_steps, token,
+                   p.stream);
+  if (dev != p.device) cudaSetDevice(dev);
+  return err;
 }
 
 }  // extern "C"

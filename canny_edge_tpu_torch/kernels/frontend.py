@@ -92,12 +92,19 @@ def _check_taps(taps: torch.Tensor) -> int:
     return window
 
 
-def _bounds(thresholds):
+def threshold_bounds(thresholds):
     """The thresholds as the integers that the kernel and the plain
     version both compare with (:func:`..ops.thresholds.threshold_bound`)."""
     if thresholds is None:
         return None
     return tuple(threshold_bound(t) for t in thresholds)
+
+
+def k1_bound(t: int) -> int:
+    """A bound as K1 compares it: 4 * magnitude with 4 * bound in an int;
+    magnitudes lie in [0, 2**13), so the bound clamped to [-1, 2**13]
+    decides alike."""
+    return min(max(t, -1), 1 << 13)
 
 
 def _launch(src: torch.Tensor, taps: torch.Tensor, thresholds, geom, entry,
@@ -121,10 +128,8 @@ def _launch(src: torch.Tensor, taps: torch.Tensor, thresholds, geom, entry,
         weak = torch.empty((*lead, oh, cdiv(ow, 32)), dtype=torch.uint32,
                            device=dev)
         strong = torch.empty_like(weak)
-        # the kernel compares 4 * magnitude with 4 * threshold in an int;
-        # magnitudes lie in [0, 2**13), so a clamped bound decides alike
-        mn, mx = (min(max(t, -1), 1 << 13) for t in thresholds)
-        out = (1, mn, mx, None, weak.data_ptr(), strong.data_ptr())
+        out = (1, k1_bound(thresholds[0]), k1_bound(thresholds[1]), None,
+               weak.data_ptr(), strong.data_ptr())
     path = k1_path(window, max_window(dev))
     with _build.device_guard(dev):
         lib = _build.load("frontend")
@@ -172,10 +177,10 @@ def frontend(img: torch.Tensor, taps: torch.Tensor, thresholds=None):
     scratch stays within ``SCRATCH_FLOATS``).  Any odd window: up to
     :func:`max_window` the tile or ring path, above it the scratch path.
     ``thresholds``: optional ``(min_val, max_val)``, compared as JAX
-    compares an integer map with them (:func:`_bounds`).
+    compares an integer map with them (:func:`threshold_bounds`).
     """
     prep = trace.RECORDING and trace.begin()
-    thresholds = _bounds(thresholds)
+    thresholds = threshold_bounds(thresholds)
     if img.dtype != torch.uint8 or img.dim() not in (2, 3) \
             or img.numel() == 0:
         raise ValueError(f"expected a non-empty uint8 (H, W) image or "
@@ -255,7 +260,7 @@ def frontend_block(window: torch.Tensor, row0: int, col0: int, H: int,
     masks ``(hl, ceil(wl/32))``; pixels past the image are 0 and clear.
     """
     prep = trace.RECORDING and trace.begin()
-    thresholds = _bounds(thresholds)
+    thresholds = threshold_bounds(thresholds)
     r = _check_taps(taps) // 2 + 2
     hl, wl = window.shape[-2] - 2 * r, window.shape[-1] - 2 * r
     if window.dtype != torch.uint8 or window.dim() != 2 or hl < 1 or wl < 1:

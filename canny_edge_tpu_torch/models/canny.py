@@ -5,7 +5,9 @@ that calls them, :class:`CannyTorch` (``CannyTPU``).
 
 ``backend="fused"``: K1 (front end with the threshold compares and the
 32-to-1 packing) -> K2 (packed hysteresis flood, which also writes the
-int16 {0, 255} map).  ``"pallas"``: :func:`..kernels.fused.canny_fused` (K1
+int16 {0, 255} map); on the card, where K1's tile or ring path takes the
+window, one C call from a launch plan kept per configuration
+(:mod:`..kernels.plan`).  ``"pallas"``: :func:`..kernels.fused.canny_fused` (K1
 in NMS mode, then K2 through its NMS-map entry).  ``"xla"``: the plain front
 end and the plain packed flood, no kernel.  The ``packed`` entry points run
 the fused engines whatever the backend, as in JAX.  Every function runs
@@ -23,7 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels.frontend import frontend
+from ..kernels import plan
+from ..kernels.frontend import frontend, threshold_bounds
 from ..kernels.fused import canny_fused, resolve_device, taps_tensor, to_device
 from ..kernels.hysteresis_packed import hysteresis_packed
 from ..ops import stages
@@ -148,8 +151,12 @@ def _canny_frames(img, min_val, max_val, kernel_vals, backend, strict):
         return canny_fused(img, min_val, max_val, kernel_vals=kernel_vals,
                            strict=strict)
     h, w = img.shape[-2:]
-    weak, strong = frontend(img, taps_tensor(kernel_vals, img.device),
-                            (min_val, max_val))
+    taps = taps_tensor(kernel_vals, img.device)
+    out = plan.run(img, taps, threshold_bounds((min_val, max_val)), strict,
+                   False)
+    if out is not None:
+        return out
+    weak, strong = frontend(img, taps, (min_val, max_val))
     return hysteresis_packed(weak, strong, h, w, strict=strict,
                              edges_int16=True)
 
@@ -174,8 +181,12 @@ def canny_fn_packed(img, min_val, max_val, *, kernel_vals,
         if out is not None:
             return out
         h, w = img.shape[-2:]
-        weak, strong = frontend(img, taps_tensor(kernel_vals, img.device),
-                                (min_val, max_val))
+        taps = taps_tensor(kernel_vals, img.device)
+        out = plan.run(img, taps, threshold_bounds((min_val, max_val)),
+                       strict, True)
+        if out is not None:
+            return out
+        weak, strong = frontend(img, taps, (min_val, max_val))
         return hysteresis_packed(weak, strong, h, w, strict=strict)
     finally:
         if root:
@@ -301,72 +312,63 @@ class CannyTorch:
         return int(self.kernel.shape[0])
 
     def _input(self, img):
+        """``img`` on ``device``, after the caller's dtype check (a tensor
+        there already is returned as it is, by ``.to``)."""
+        if isinstance(img, torch.Tensor):
+            return img.to(self.device)
         return uint8_input(img, self.device)
 
     # Each method is the root span of its request (``entry``), and its own
-    # checks are ``entry.check`` (``utils/trace.py``).
+    # checks are ``entry.check`` (``utils/trace.py``).  On the ``fused``
+    # backend a request on the card takes its launch plan
+    # (:mod:`..kernels.plan`) where one applies; the rest, and every
+    # request elsewhere, go through the functional entry points.
+
+    def _request(self, img, min_val, max_val, *, packed: bool, batch: bool):
+        root = trace.RECORDING and trace.entry()
+        try:
+            chk = root and trace.begin()
+            if batch:
+                img = self._batch_input(img, min_val, max_val)
+            else:
+                self._validate(img, min_val, max_val)
+                img = self._input(img)
+            bounds = _truncated(min_val, max_val)
+            if chk:
+                trace.end("entry.check", chk)
+            if self.backend == "fused" and self.hysteresis_mode in MODES:
+                # a truncated threshold is its own bound
+                out = plan.run(img, self.taps, bounds,
+                               self.hysteresis_mode == "strict-reference",
+                               packed)
+                if out is not None:
+                    return out
+            if packed:
+                return canny_fn_packed(img, *bounds, kernel_vals=self.taps,
+                                       hysteresis_mode=self.hysteresis_mode)
+            fn = canny_fn_batched if batch else canny_fn
+            return fn(img, *bounds, kernel_vals=self.taps,
+                      backend=self.backend,
+                      hysteresis_mode=self.hysteresis_mode)
+        finally:
+            if root:
+                trace.end_entry(root)
 
     def __call__(self, img, min_val: int, max_val: int):
         """(H, W) -> (H, W) int16 {0, 255} (:func:`canny_fn`)."""
-        root = trace.RECORDING and trace.entry()
-        try:
-            chk = root and trace.begin()
-            self._validate(img, min_val, max_val)
-            img, bounds = self._input(img), _truncated(min_val, max_val)
-            if chk:
-                trace.end("entry.check", chk)
-            return canny_fn(img, *bounds, kernel_vals=self.taps,
-                            backend=self.backend,
-                            hysteresis_mode=self.hysteresis_mode)
-        finally:
-            if root:
-                trace.end_entry(root)
+        return self._request(img, min_val, max_val, packed=False, batch=False)
 
     def packed(self, img, min_val: int, max_val: int):
         """Edge bitmask (H, ceil(W/32)) uint32 (:func:`canny_fn_packed`)."""
-        root = trace.RECORDING and trace.entry()
-        try:
-            chk = root and trace.begin()
-            self._validate(img, min_val, max_val)
-            img, bounds = self._input(img), _truncated(min_val, max_val)
-            if chk:
-                trace.end("entry.check", chk)
-            return canny_fn_packed(img, *bounds, kernel_vals=self.taps,
-                                   hysteresis_mode=self.hysteresis_mode)
-        finally:
-            if root:
-                trace.end_entry(root)
+        return self._request(img, min_val, max_val, packed=True, batch=False)
 
     def batch(self, imgs, min_val: int, max_val: int):
         """(B, H, W) -> (B, H, W) int16 {0, 255} (:func:`canny_fn_batched`)."""
-        root = trace.RECORDING and trace.entry()
-        try:
-            chk = root and trace.begin()
-            imgs = self._batch_input(imgs, min_val, max_val)
-            bounds = _truncated(min_val, max_val)
-            if chk:
-                trace.end("entry.check", chk)
-            return canny_fn_batched(imgs, *bounds, kernel_vals=self.taps,
-                                    backend=self.backend,
-                                    hysteresis_mode=self.hysteresis_mode)
-        finally:
-            if root:
-                trace.end_entry(root)
+        return self._request(imgs, min_val, max_val, packed=False, batch=True)
 
     def batch_packed(self, imgs, min_val: int, max_val: int):
         """(B, H, W) -> (B, H, ceil(W/32)) uint32 edge bitmasks."""
-        root = trace.RECORDING and trace.entry()
-        try:
-            chk = root and trace.begin()
-            imgs = self._batch_input(imgs, min_val, max_val)
-            bounds = _truncated(min_val, max_val)
-            if chk:
-                trace.end("entry.check", chk)
-            return canny_fn_packed(imgs, *bounds, kernel_vals=self.taps,
-                                   hysteresis_mode=self.hysteresis_mode)
-        finally:
-            if root:
-                trace.end_entry(root)
+        return self._request(imgs, min_val, max_val, packed=True, batch=True)
 
     def with_intermediates(self, img, min_val: int, max_val: int):
         """The stage path on ``device`` with its intermediates: see

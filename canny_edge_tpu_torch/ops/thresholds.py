@@ -36,6 +36,8 @@ def threshold_int32(t) -> int:
     (``ValueError`` for NaN, ``OverflowError`` for an infinity or a Python
     float past int32), a NumPy scalar or a 0-d tensor as NumPy converts
     it."""
+    if type(t) is int and INT32_MIN <= t <= INT32_MAX:
+        return t                         # np.int32's value, without it
     return int(np.int32(_host(t)))
 
 

@@ -6,13 +6,19 @@ port's own span recorder, whose spans :func:`trace` writes beside them.
 The recorder keeps host spans of the entry point in memory: each has a
 name, a start and an end on ``time.perf_counter()``, the index of its
 parent span and a request id, the sequence number of the request's root
-span.  The entry points and the K1/K2 wrappers open these spans (a request
-of ``CannyTorch`` on the ``fused`` backend)::
+span.  The entry points, the K1/K2 wrappers and the launch plans open
+these spans (a request of ``CannyTorch`` on the ``fused`` backend)::
 
     entry             the request: CannyTorch.__call__/.packed/.batch/
                       .batch_packed, or canny_fn* called on their own
       entry.check     validation, thresholds, mode and backend, the input
                       on the device, the empty-input test
+    a request on its launch plan (kernels/plan.py; on the card):
+      plan.prep       the plan's lookup (or whether one applies, and its
+                      build), the output, the token
+      plan.launch     the one ctypes call that launches K1 then K2, and
+                      its error check
+    every other request (on a CPU tensor, the plain versions):
       k1.prep         K1's wrapper: bounds, checks, path, outputs, library,
                       device guard, stream
       k1.launch       the ctypes call into K1 and its error check (on a
@@ -21,8 +27,9 @@ of ``CannyTorch`` on the ``fused`` backend)::
       k2.launch       the ctypes call into K2 and its error check (on a
                       CPU tensor: the plain flood)
 
-The taps' ``.to`` and the function's own checks, between ``entry.check``
-and ``k1.prep``, are ``entry``'s own time; :func:`annotate` adds spans of
+The taps' ``.to`` and the function's own checks, after ``entry.check``,
+and a plan's next output, made after ``plan.launch``, are ``entry``'s own
+time; :func:`annotate` adds spans of
 its own.  A span that an exception cuts short is not recorded (the
 request's ``entry`` is).  Recording is off by default, and off a span site
 costs one test of :data:`RECORDING`.  :func:`start_recording` turns it on

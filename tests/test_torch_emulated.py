@@ -9,7 +9,9 @@ packed masks, equal to the plain front end (``ops/window.py``) at small
 shapes; the emulated card's SM count makes a strip several runs (several
 blocks down a column), so runs, steps, the ring's wrap and its mirror rows
 are all crossed.  Its answer for the largest window of the tile and ring
-paths is the largest whose shared memory fits, at two limits.  What only
+paths is the largest whose shared memory fits, at two limits.  The launch
+plan's entry (``canny_run_plan``) runs K1 into the plan's masks, then K2's
+entry, here a stand-in that records its arguments.  What only
 the card shows (that nvcc builds
 the source, its speed) is in the ``cuda``-marked tests.  Tolerance: 0
 differing values.
@@ -23,6 +25,8 @@ import torch
 
 from bench_torch import make_image
 from canny_edge_tpu_torch.kernels import frontend as kfe
+from canny_edge_tpu_torch.kernels import plan as kplan
+from canny_edge_tpu_torch.kernels._build import SIGNATURES
 from canny_edge_tpu_torch.ops import window
 from canny_edge_tpu_torch.ops.gaussian import gaussian_kernel
 from canny_edge_tpu_torch.ops.packed import cdiv
@@ -165,3 +169,64 @@ def test_emulated_scratch_path_past_the_ring(k1):
                                    taps.data_ptr(), 619, *out,
                                    scratch.data_ptr(), n, None) == 0
     assert _same(nm, window.frontend_nm(img, kern))
+
+
+# canny_hysteresis_packed's C signature (kernels/_build.py), for a stand-in
+# K2 that the plan entry calls
+FLOOD = ctypes.CFUNCTYPE(ctypes.c_int, *SIGNATURES["hysteresis_packed"][
+    "canny_hysteresis_packed"])
+
+
+# (window, output, what the stand-in K2 returns, the plan's device, what
+# canny_run_plan returns): the tile path and the ring path, int16 and
+# packed output, a K2 error (negated), a device that cannot be made
+# current and a window K1 refuses (K1's error, K2 not called)
+PLANS = [(11, "int16", 0, 0, 0), (121, "packed", 0, 0, 0),
+         (11, "packed", 7, 0, -7), (19, "int16", 0, 1, 101),
+         (1, "int16", 0, 0, 1)]
+
+
+@pytest.mark.parametrize("win,kind,k2_err,device,want", PLANS)
+def test_emulated_plan_runs_k1_then_k2(k1, win, kind, k2_err, device, want):
+    """``canny_run_plan`` from an argument block laid out by
+    ``kernels/plan.py:Args``: K1 fills the plan's masks with its bounds
+    (equal to the plain front end's), then K2's entry is called once, with
+    the plan's fields, the output and the token."""
+    kern = gaussian_kernel((win // 2 - 0.5) / 3) if win > 1 else \
+        np.ones(1, np.float32)
+    _card(k1, 4)
+    b, h, w = 2, 37, 70
+    imgs = torch.stack([_frame(h, w, seed=s) for s in range(b)])
+    taps = torch.from_numpy(kern)
+    weak = torch.zeros((b, h, cdiv(w, 32)), dtype=torch.uint32)
+    strong, edges = torch.zeros_like(weak), torch.zeros_like(weak)
+    out = (torch.zeros_like(weak) if kind == "packed" else
+           torch.zeros((b, h, w), dtype=torch.int16))
+    ctl = torch.zeros(5, dtype=torch.int64)
+    total = torch.zeros(1, dtype=torch.int64)
+    calls = []
+
+    def flood(*args):
+        calls.append(args)
+        return k2_err
+
+    k2 = FLOOD(flood)
+    args = kplan.Args(taps.data_ptr(), weak.data_ptr(), strong.data_ptr(),
+                      None if kind == "packed" else edges.data_ptr(),
+                      ctl.data_ptr(), total.data_ptr(), 1234,
+                      ctypes.cast(k2, ctypes.c_void_p).value, device, b, h, w,
+                      win, MN, MX, 1)
+    run = kplan._RUN(("canny_run_plan", k1))     # as a plan calls it
+    assert run(ctypes.addressof(args), imgs.data_ptr(), out.data_ptr(),
+               5 << 32) == want
+    if want > 0:
+        assert calls == []
+        return
+    for i in range(b):
+        mw, ms = window.frontend_nm(imgs[i], kern, (MN, MX))
+        assert _same(weak[i], mw) and _same(strong[i], ms)
+    packed = kind == "packed"
+    assert calls == [(weak.data_ptr(), strong.data_ptr(), None, 0, 0, 0,
+                      (out if packed else edges).data_ptr(),
+                      None if packed else out.data_ptr(), b, h, w, 1, 0, 0,
+                      ctl.data_ptr(), total.data_ptr(), 5 << 32, 1234)]

@@ -1,7 +1,7 @@
 """The port's span recorder (``canny_edge_tpu_torch/utils/trace.py``), the
-spans of the entry point and the K1/K2 wrappers, and K2's count of flood
-steps: on the CPU the plain versions, on the card (``cuda`` marker) the
-kernels."""
+spans of the entry point, the K1/K2 wrappers and the launch plan, and K2's
+count of flood steps: on the CPU the plain versions, on the card (``cuda``
+marker) the kernels, a request through its launch plan."""
 
 import json
 import os
@@ -22,6 +22,8 @@ from canny_edge_tpu_torch.utils import trace
 from tools.entry_spans import per_request, split_call
 
 STAGES = ["entry.check", "k1.prep", "k1.launch", "k2.prep", "k2.launch"]
+# a request on the card that takes its launch plan (kernels/plan.py)
+PLAN_STAGES = ["entry.check", "plan.prep", "plan.launch"]
 SIGMA, MN, MX = 1.4, 30, 90
 
 
@@ -283,6 +285,22 @@ def test_per_request_parts_the_launches_from_the_rest():
     assert per_request([])["requests"] == 0
 
 
+def test_per_request_counts_the_plan_launch_as_launch_time():
+    """A request through its launch plan: ``plan.launch`` (K1 and K2 in
+    one C call) is launch time, ``plan.prep`` the rest of the entry."""
+    ms = 1e-3
+    spans = [_span("entry", 0, 8 * ms, request=0),
+             _span("entry.check", 0, 1 * ms, 0),
+             _span("plan.prep", 1 * ms, 3 * ms, 0),
+             _span("plan.launch", 3 * ms, 7 * ms, 0)]
+    got = per_request(spans)
+    assert got["requests"] == 1
+    assert got["entry_launch_ms"] == pytest.approx(4)
+    assert got["entry_prep_ms"] == pytest.approx(4)
+    assert got["per_request_ms"] == pytest.approx(
+        {"entry": 8, "entry.check": 1, "plan.prep": 2, "plan.launch": 4})
+
+
 def test_split_call_by_the_innermost_span():
     spans = [_span("entry", 1, 9), _span("k1.prep", 2, 4, 0),
              _span("k1.launch", 4, 5, 0), _span("k2.prep", 6, 8, 0)]
@@ -379,7 +397,7 @@ def test_card_spans_and_edges(kind, cuda_device):
         trace.stop_recording()
     spans, dropped = trace.drain()
     assert torch.equal(off, on) and dropped == 0
-    assert [names for _, names in _requests(spans).values()] == [STAGES]
+    assert [names for _, names in _requests(spans).values()] == [PLAN_STAGES]
     cpu = _request(kind, frames)
     assert torch.equal(on.cpu(), cpu)
 
@@ -388,9 +406,10 @@ def test_card_spans_and_edges(kind, cuda_device):
 def test_card_trace_places_launches_inside_their_spans(cuda_device,
                                                        tmp_path):
     """In ``trace()``'s file, the runtime's launch of each kernel lies
-    inside its wrapper's launch span: the spans share the profiler's
-    clock.  (The profiler may lose a few records, most often in its first
-    capture, which is a throwaway here.)"""
+    inside the launch span of its request's plan, ``plan.launch`` (K1 and
+    K2 in one C call): the spans share the profiler's clock.  (The
+    profiler may lose a few records, most often in its first capture,
+    which is a throwaway here.)"""
     model = CannyTorch(SIGMA)
     frames = torch.from_numpy(_frames(n=4, h=270, w=480)).to(cuda_device)
     with trace.trace(str(tmp_path / "warm")):
@@ -403,21 +422,21 @@ def test_card_trace_places_launches_inside_their_spans(cuda_device,
     events = json.load(open(tmp_path / "trace.json"))["traceEvents"]
     kernels = {e["args"]["correlation"]: e["name"] for e in events
                if e.get("cat") == "kernel"}
-    spans = {"k1.launch": [], "k2.launch": []}
-    for e in events:
-        if e.get("cat") == "canny_span" and e["name"] in spans:
-            spans[e["name"]].append((e["ts"], e["ts"] + e["dur"]))
-    n = inside = 0
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "canny_span" and e["name"] == "plan.launch"]
+    assert len(spans) >= 180
+    n, inside = {"k1": 0, "k2": 0}, {"k1": 0, "k2": 0}
     for e in events:
         if e.get("cat") != "cuda_runtime" or \
                 not e["name"].startswith("cudaLaunch"):
             continue
         kname = kernels.get(e["args"].get("correlation"), "")
-        name = ("k2.launch" if "flood_kernel" in kname else
-                "k1.launch" if "frontend" in kname else None)
+        name = ("k2" if "flood_kernel" in kname else
+                "k1" if "frontend" in kname else None)
         if name is None:
             continue
-        n += 1
-        inside += any(s <= e["ts"] and e["ts"] + e["dur"] <= t
-                      for s, t in spans[name])
-    assert n >= 360 and inside >= 0.99 * n, (inside, n)
+        n[name] += 1
+        inside[name] += any(s <= e["ts"] and e["ts"] + e["dur"] <= t
+                            for s, t in spans)
+    for k in n:
+        assert n[k] >= 180 and inside[k] >= 0.99 * n[k], (inside, n)

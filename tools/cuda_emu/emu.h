@@ -62,6 +62,9 @@ enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin,
                       cudaDevAttrMultiProcessorCount };
 struct cudaFuncAttributes { size_t sharedSizeBytes; int numRegs; };
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaSetDevice(int d) {
+  return d == 0 ? cudaSuccess : cudaErrorInvalidDevice;
+}
 extern int emu_error;
 inline cudaError_t cudaGetLastError() { int e = emu_error; emu_error = 0; return e; }
 int emu_attr(cudaDeviceAttr a);

@@ -2,8 +2,9 @@
 trace.py``), for a benchmark that records them over a traced slice:
 
 - :func:`per_request`: each span's mean host time a request, and the
-  request's launches (``k1.launch`` + ``k2.launch``) against the rest of
-  its ``entry``;
+  request's launches (``k1.launch`` + ``k2.launch`` on the wrappers' path,
+  ``plan.launch`` on a launch plan, whose one C call launches K1 and K2)
+  against the rest of its ``entry``;
 - :func:`split_call`: the card's idle time inside the harness's ``call``
   spans, put down to the innermost program span open at each idle instant.
 
