@@ -41,6 +41,7 @@ SIGNATURES = {
                                  _I, _I, _I, _P, _P, _P, _P, _L, _P],
         "canny_frontend_max_window": [],
         "canny_frontend_smem_bytes": [_I],
+        "canny_frontend_ring_geometry": [_I, _I, _I, _I, _P],
         "canny_run_plan": [_P, _P, _P, _L],
     },
     "hysteresis_packed": {

@@ -928,24 +928,51 @@ frontend_ring_kernel(Frame f, const float* __restrict__ taps, int window,
 // the ring path's shared memory at this window
 int ring_smem_bytes(int window) { return ring_geo(window).bytes; }
 
-cudaError_t launch_ring(const Frame& f, const float* taps, int window,
-                        int packed, int mn, int mx, int16_t* nm_out,
-                        uint32_t* weak, uint32_t* strong,
-                        cudaStream_t stream) {
-  const int bytes = ring_smem_bytes(window);
+// The ring path's launch on B outputs of (oh, ow) at `window` taps on the
+// current device, worked out in one place for the launch and for
+// canny_frontend_ring_geometry: as many runs as fill the card's co-resident
+// blocks (slots) once, at most RMAX rows a run, R rows a run (a multiple of
+// RTH); a block x-passes the prologue's 4 + 2c rows and RTH rows a step for
+// its run's output rows.  blocks, xpass_rows and out_rows are summed over
+// the grid (strips, runs, B).
+struct RingLaunch {
+  int slots, strips, runs, R;
+  long long blocks, xpass_rows, out_rows;
+};
+
+cudaError_t ring_launch_of(int B, int oh, int ow, int window,
+                           RingLaunch* g) {
   // the blocks the card holds at once (which also sets the kernel's shared
   // memory attribute to the device's limit)
   int slots = 0;
   cudaError_t e = masks::coop_blocks((const void*)frontend_ring_kernel, RT,
-                                     bytes, 8, &slots);
+                                     ring_smem_bytes(window), 8, &slots);
   if (e != cudaSuccess) return e;
-  const int strips = (f.ow + TILE_W - 1) / TILE_W;
-  const int runs0 = max(max(1, slots / (strips * f.B)),
-                        (f.oh + RMAX - 1) / RMAX);
-  const int R = ((f.oh + runs0 - 1) / runs0 + RTH - 1) / RTH * RTH;
-  const dim3 grid(strips, (f.oh + R - 1) / R, f.B);
-  frontend_ring_kernel<<<grid, RT, bytes, stream>>>(
-      f, taps, window, R, packed, mn, mx, f.sw % 4 == 0, nm_out, weak,
+  const int strips = (ow + TILE_W - 1) / TILE_W;
+  const int runs0 = max(max(1, slots / (strips * B)), (oh + RMAX - 1) / RMAX);
+  const int R = ((oh + runs0 - 1) / runs0 + RTH - 1) / RTH * RTH;
+  const int runs = (oh + R - 1) / R;
+  // every run but the last steps through R rows; the last through its rows
+  // rounded up to a step
+  const int last = (oh - (runs - 1) * R + RTH - 1) / RTH * RTH;
+  const long long columns = (long long)strips * B;
+  *g = RingLaunch{slots, strips, runs, R, columns * runs,
+                  columns * ((long long)runs * (4 + 2 * (window / 2))
+                             + (long long)(runs - 1) * R + last),
+                  columns * oh};
+  return cudaSuccess;
+}
+
+cudaError_t launch_ring(const Frame& f, const float* taps, int window,
+                        int packed, int mn, int mx, int16_t* nm_out,
+                        uint32_t* weak, uint32_t* strong,
+                        cudaStream_t stream) {
+  RingLaunch g;
+  const cudaError_t e = ring_launch_of(f.B, f.oh, f.ow, window, &g);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(g.strips, g.runs, f.B);
+  frontend_ring_kernel<<<grid, RT, ring_smem_bytes(window), stream>>>(
+      f, taps, window, g.R, packed, mn, mx, f.sw % 4 == 0, nm_out, weak,
       strong);
   return cudaGetLastError();
 }
@@ -1188,6 +1215,27 @@ int canny_frontend_max_window() {
   int w = 1;
   while (canny_frontend_smem_bytes(w + 2) <= limit) w += 2;
   return w < 3 ? 0 : w;
+}
+
+// The ring path's launch on B outputs of (oh, ow) at `window` taps (odd,
+// past TILE_MAX) on the current device, as canny_frontend and
+// canny_frontend_block launch it (ring_launch_of): geo[0..6] = the card's
+// co-resident blocks, strips, runs, rows a run, blocks, x-pass rows and
+// output rows, the last two summed over the blocks.  Returns
+// cudaErrorInvalidValue for another window or an empty batch, and past what
+// the ring's shared memory holds.
+int canny_frontend_ring_geometry(int B, int oh, int ow, int window,
+                                 long long* geo) {
+  if (B < 1 || B > 65535 || oh < 1 || ow < 1 || window <= TILE_MAX
+      || window % 2 == 0)
+    return (int)cudaErrorInvalidValue;
+  RingLaunch g;
+  const cudaError_t e = ring_launch_of(B, oh, ow, window, &g);
+  if (e != cudaSuccess) return (int)e;
+  const long long v[7] = {g.slots, g.strips, g.runs, g.R, g.blocks,
+                          g.xpass_rows, g.out_rows};
+  for (int i = 0; i < 7; ++i) geo[i] = v[i];
+  return 0;
 }
 
 // img: uint8 (B, H, W), 1 <= B <= 65535; taps: float32 (window); packed ==

@@ -9,15 +9,18 @@ Any odd window, on one of three paths (:func:`k1_path`): the tile path
 (every stage in one block's shared memory, unrolled per window) takes
 windows 3 to 103, the ring path (a column strip streamed through a ring of
 x-pass rows) every wider window that its shared memory holds
-(:func:`max_window`, 613 on the H100),
-the scratch path every wider one (the blur through device memory, kept per
-device, stream and shape as :mod:`._scratch` keeps the floods'; then the
-same back half).  A CPU tensor goes to the plain version
+(:func:`max_window`, 613 on the H100; its launch's geometry:
+:func:`ring_geometry`), the scratch path every wider one (the blur through
+device memory, kept per device, stream and shape as :mod:`._scratch` keeps
+the floods'; then the same back half).  A CPU tensor goes to the plain version
 (:mod:`..ops.window`, a frame at a time); a CUDA tensor goes to the kernel
 or raises.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,6 +41,12 @@ block_launches = 0
 batch_launches = 0
 ring_launches = 0
 scratch_launches = 0
+# what the ring launches ran (:func:`ring_geometry`): blocks, x-pass rows
+# and output rows, summed over their blocks; x-pass rows over output rows is
+# the ring's recompute
+ring_blocks = 0
+ring_xpass_rows = 0
+ring_out_rows = 0
 
 # the tile path's instantiations (csrc/frontend.cu:TILE_MAX): past 103 taps
 # the ring path is the faster on the H100
@@ -83,6 +92,35 @@ def max_window(device: torch.device) -> int:
             _max_window[idx] = \
                 _build.load("frontend").canny_frontend_max_window()
     return _max_window[idx]
+
+
+class RingGeometry(NamedTuple):
+    """A ring-path launch (``csrc/frontend.cu:ring_launch_of``): the blocks
+    the card holds at once (``slots``), the 64-column ``strips`` of a frame,
+    the ``runs`` down a strip of ``rows`` output rows each (the last run's
+    fewer), the grid's ``blocks`` (strips x runs x frames), and, summed over
+    the blocks, the x-pass rows computed (a run's 32-row steps and its
+    prologue of ``4 + 2 (window // 2)`` rows) and the output rows."""
+    slots: int
+    strips: int
+    runs: int
+    rows: int
+    blocks: int
+    xpass_rows: int
+    out_rows: int
+
+
+def ring_geometry(b: int, oh: int, ow: int, window: int,
+                  device: torch.device) -> RingGeometry:
+    """K1's ring-path launch on ``b`` outputs of ``(oh, ow)`` at ``window``
+    taps on ``device`` (a CUDA device), as the library launches it;
+    ``RuntimeError`` for a window off the ring path."""
+    geo = (ctypes.c_longlong * 7)()
+    with _build.device_guard(device):
+        err = _build.load("frontend").canny_frontend_ring_geometry(
+            b, oh, ow, window, geo)
+    _build.check(err, "canny_frontend_ring_geometry")
+    return RingGeometry(*geo)
 
 
 def _check_taps(taps: torch.Tensor) -> int:
@@ -158,14 +196,37 @@ def _launch(src: torch.Tensor, taps: torch.Tensor, thresholds, geom, entry,
     return path, (nm if thresholds is None else (weak, strong))
 
 
-def _count(path: str, b: int, block: bool = False) -> None:
-    global launches, block_launches, batch_launches, ring_launches
-    global scratch_launches
+def ring_counts(b: int, oh: int, ow: int, window: int, dev) -> tuple:
+    """What a launch on ``b`` outputs of ``(oh, ow)`` at ``window`` taps on
+    ``dev`` adds to ``ring_launches``, ``ring_blocks``, ``ring_xpass_rows``
+    and ``ring_out_rows``: one launch and its geometry
+    (:func:`ring_geometry`) on the ring path, zeros on the others."""
+    if k1_path(window, max_window(dev)) != "ring":
+        return (0, 0, 0, 0)
+    g = ring_geometry(b, oh, ow, window, dev)
+    return (1, g.blocks, g.xpass_rows, g.out_rows)
+
+
+def count_ring(counts: tuple) -> None:
+    """Add :func:`ring_counts`'s ``counts`` to the ring counters."""
+    global ring_launches, ring_blocks, ring_xpass_rows, ring_out_rows
+    n, blocks, xpass_rows, out_rows = counts
+    ring_launches += n
+    ring_blocks += blocks
+    ring_xpass_rows += xpass_rows
+    ring_out_rows += out_rows
+
+
+def _count(path: str, geom, window: int, dev, block: bool = False) -> None:
+    """A launch of :func:`_launch` on ``geom``."""
+    global launches, block_launches, batch_launches, scratch_launches
+    b, _, oh, ow = geom[:4]
     launches += 1
     block_launches += block
     batch_launches += b > 1
-    ring_launches += path == "ring"
     scratch_launches += path == "scratch"
+    if path == "ring":
+        count_ring(ring_counts(b, oh, ow, window, dev))
 
 
 def frontend(img: torch.Tensor, taps: torch.Tensor, thresholds=None):
@@ -214,11 +275,12 @@ def frontend(img: torch.Tensor, taps: torch.Tensor, thresholds=None):
         if parts:
             prep = trace.RECORDING and trace.begin()
         b = chunk.shape[0] if chunk.dim() == 3 else 1
-        path, res = _launch(chunk, taps, thresholds, (b, 0, h, w, 0, 0, h, w),
+        geom = (b, 0, h, w, 0, 0, h, w)
+        path, res = _launch(chunk, taps, thresholds, geom,
                             ("canny_frontend", (b, h, w)), chunk.shape[:-2],
                             prep)
         parts.append(res)
-        _count(path, b)
+        _count(path, geom, window, img.device)
     if len(parts) == 1:
         return parts[0]
     return (torch.cat(parts) if thresholds is None else
@@ -281,5 +343,5 @@ def frontend_block(window: torch.Tensor, row0: int, col0: int, H: int,
     path, res = _launch(window.contiguous(), taps, thresholds, geom,
                         ("canny_frontend_block",
                          (hl, wl, r, row0, col0, H, W)), prep=prep)
-    _count(path, 1, block=True)
+    _count(path, geom, taps.shape[0], window.device, block=True)
     return res

@@ -29,9 +29,11 @@ a key is not found (a key holds all it reads): a non-empty uint8 CUDA
 tensor of at most :data:`.frontend.MAX_BATCH` frames, with taps that take
 K1's tile or ring path (3 to :func:`.frontend.max_window` taps); every
 other request keeps the wrappers' path.  The wrappers' counters (K1's
-``launches``, ``batch_launches``, ``ring_launches``; K2's ``launches``,
-``batch_launches``) and :func:`.hysteresis_packed.flood_steps` count a
-plan's launches as theirs; :data:`plan_builds` and :data:`plan_hits` count
+``launches``, ``batch_launches``, ``ring_launches`` and the ring's
+geometry, ``ring_blocks``, ``ring_xpass_rows``, ``ring_out_rows``, which a
+plan works out once, at its build; K2's ``launches``, ``batch_launches``)
+and :func:`.hysteresis_packed.flood_steps` count a plan's launches as
+theirs; :data:`plan_builds` and :data:`plan_hits` count
 its lookups, so ``plan_hits / (plan_hits + plan_builds)`` is the hit share.
 """
 
@@ -168,7 +170,7 @@ def _count(plan: Plan, k2: bool = True) -> None:
     """A plan's launches in the wrappers' counters: K1's, and K2's."""
     _k1.launches += 1
     _k1.batch_launches += plan.batch
-    _k1.ring_launches += plan.ring
+    _k1.count_ring(plan.ring)
     if k2:
         _k2.launches += 1
         _k2.batch_launches += plan.batch
@@ -217,7 +219,7 @@ def _build_plan(key: tuple) -> Plan:
         plan.shape, plan.dtype = tuple(shape), torch.int16
     plan.device = dev
     plan.batch = b > 1
-    plan.ring = _k1.k1_path(window, _k1.max_window(dev)) == "ring"
+    plan.ring = _k1.ring_counts(b, h, w, window, dev)
     plan.keep = (entry, word)          # the buffers live as long as the plan
     plan.spare = []
     return plan

@@ -254,7 +254,8 @@ def test_card_k1_ring_path_equals_plain(cuda_device, win):
     unrolled instantiations up to 103, the ring path above) in frame, batch
     and block mode, NMS map and masks, at shapes off the 64-column strip
     and the 32-row step (257x333), a single row (1x1000) and a single
-    column (40x1)."""
+    column (40x1); each ring launch in the ring counters with its
+    geometry."""
     from bench_torch import make_image
 
     kern = gaussian_kernel(WIDE_SIGMAS[win])
@@ -262,12 +263,24 @@ def test_card_k1_ring_path_equals_plain(cuda_device, win):
     path = kfe.k1_path(win, kfe.max_window(cuda_device))
     assert path == ("tile" if win <= 103 else "ring")
     taps = torch.from_numpy(kern).to(cuda_device)
-    before = kfe.ring_launches
+
+    def ring():
+        return np.array([kfe.ring_launches, kfe.ring_blocks,
+                         kfe.ring_xpass_rows, kfe.ring_out_rows])
+
+    def geometry(b, oh, ow):
+        if path != "ring":
+            return 0
+        g = kfe.ring_geometry(b, oh, ow, win, cuda_device)
+        return np.array([1, g.blocks, g.xpass_rows, g.out_rows])
+
+    before, counted = ring(), 0
     for h, w in ((257, 333), (1, 1000), (40, 1)):
         imgs = torch.from_numpy(np.stack([make_image(h, w, seed=s)
                                           for s in range(3)])).to(cuda_device)
         nm = kfe.frontend(imgs, taps)
         weak, strong = kfe.frontend(imgs[1], taps, (5, 20))
+        counted = counted + geometry(3, h, w) + geometry(1, h, w)
         for i in range(3):
             assert torch.equal(nm[i].to(torch.int32),
                                window.frontend_nm(imgs[i], kern))
@@ -286,11 +299,14 @@ def test_card_k1_ring_path_equals_plain(cuda_device, win):
             blk_win, row0, col0, 257, 333, kern))
         got = kfe.frontend_block(blk_win, row0, col0, 257, 333, taps,
                                  (5, 20))
+        counted = counted + 2 * geometry(1, hl, wl)
         want = window.frontend_block(blk_win, row0, col0, 257, 333, kern,
                                      (5, 20))
         assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                    for a, b in zip(got, want))
-    assert kfe.ring_launches == before + (12 if path == "ring" else 0)
+    moved = ring() - before
+    assert moved[0] == (12 if path == "ring" else 0)
+    assert (moved == counted).all()
 
 
 @pytest.mark.cuda

@@ -9,22 +9,28 @@ packed masks, equal to the plain front end (``ops/window.py``) at small
 shapes; the emulated card's SM count makes a strip several runs (several
 blocks down a column), so runs, steps, the ring's wrap and its mirror rows
 are all crossed.  Its answer for the largest window of the tile and ring
-paths is the largest whose shared memory fits, at two limits.  The launch
-plan's entry (``canny_run_plan``) runs K1 into the plan's masks, then K2's
-entry, here a stand-in that records its arguments.  What only
-the card shows (that nvcc builds
-the source, its speed) is in the ``cuda``-marked tests.  Tolerance: 0
+paths is the largest whose shared memory fits, at two limits, and the ring
+path's launch geometry (``canny_frontend_ring_geometry``) is the grid it
+launches.  The launch plan's entry (``canny_run_plan``) runs K1 into the
+plan's masks, then K2's entry, here a stand-in that records its arguments
+or runs the plain flood.  What only the card shows (that nvcc builds the
+source, its speed) is in the ``cuda``-marked tests.  Tolerance: 0
 differing values.
 """
 
+import contextlib
 import ctypes
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from bench_torch import make_image
+from canny_edge_tpu_torch import CannyTorch
 from canny_edge_tpu_torch.kernels import frontend as kfe
+from canny_edge_tpu_torch.kernels import hysteresis_packed as khp
 from canny_edge_tpu_torch.kernels import plan as kplan
 from canny_edge_tpu_torch.kernels._build import SIGNATURES
 from canny_edge_tpu_torch.ops import window
@@ -33,6 +39,7 @@ from canny_edge_tpu_torch.ops.packed import cdiv
 from tools.cuda_emu import build
 
 MN, MX = 5, 20
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module")
@@ -63,6 +70,24 @@ def _outputs(lead, h, w, thresholds):
     strong = torch.zeros_like(weak)
     return (weak, strong), (1, *thresholds, None, weak.data_ptr(),
                             strong.data_ptr())
+
+
+def _ring_geometry(lib, b, oh, ow, window):
+    """The C entry's geometry, or its error."""
+    geo = (ctypes.c_longlong * 7)()
+    err = lib.canny_frontend_ring_geometry(b, oh, ow, window, geo)
+    return kfe.RingGeometry(*geo) if err == 0 else err
+
+
+def _launched_is_the_geometry(lib, b, oh, ow, window):
+    """The grid of the last launch is the ring geometry's (strips, runs,
+    frames), its runs of R rows covering the frame."""
+    g = _ring_geometry(lib, b, oh, ow, window)
+    grid = tuple((ctypes.c_uint * 3).in_dll(lib, "emu_grid"))
+    assert grid == (g.strips, g.runs, b)
+    assert g.rows % 32 == 0 and (g.runs - 1) * g.rows < oh <= g.runs * g.rows
+    assert g.blocks == g.strips * g.runs * b
+    assert g.out_rows == g.strips * b * oh
 
 
 def _same(got, want):
@@ -108,6 +133,8 @@ def test_emulated_frame_equals_plain(k1, win, hw, sms):
                                  win, *out, None) == 0
         want = (ref,) if thr is None else window.frontend_nm(img, kern, thr)
         assert all(_same(g, w) for g, w in zip(got, want))
+        if win > 103:
+            _launched_is_the_geometry(k1, 1, *hw, win)
 
 
 @pytest.mark.parametrize("hw", [(37, 45), (1, 50), (45, 1)])
@@ -123,6 +150,7 @@ def test_emulated_batch_equals_plain(k1, hw):
     (nm,), out = _outputs((3,), *hw, None)
     assert k1.canny_frontend(imgs.data_ptr(), 3, *hw, taps.data_ptr(),
                              len(kern), *out, None) == 0
+    _launched_is_the_geometry(k1, 3, *hw, len(kern))
     for i in range(3):
         assert _same(nm[i], window.frontend_nm(imgs[i], kern))
 
@@ -149,6 +177,32 @@ def test_emulated_block_equals_plain(k1, row0, col0, hl, wl):
         want = window.frontend_block(win, row0, col0, H, W, kern, thr)
         assert all(_same(g, w) for g, w in zip(got, (want,) if thr is None
                                                else want))
+
+
+def test_emulated_ring_geometry_of_the_wide_cell(k1, monkeypatch):
+    """A batch of 8 1080p frames at 121 taps: on a card of fewer than 240
+    co-resident blocks (the H100's 132 SMs; the library keeps a window's
+    count from its first ask), 30 strips, 3 runs of 384 rows, 720 blocks,
+    each x-passing its rows rounded up to 32 and 124 rows of prologue (1460
+    rows a strip for 1080 out: a recompute of 1.35); no geometry off the
+    ring path, for an empty batch or past the ring's shared memory.  The
+    wrapper (``kernels/frontend.py:ring_geometry``) reads the same
+    entry."""
+    _card(k1, 132)
+    got = _ring_geometry(k1, 8, 1080, 1920, 121)
+    want = kfe.RingGeometry(got.slots, 30, 3, 384, 720, 240 * 1460,
+                            240 * 1080)
+    assert got == want and 1 <= got.slots < 240
+    for bad in ((8, 1080, 1920, 103), (8, 1080, 1920, 120),
+                (0, 1080, 1920, 121), (8, 0, 1920, 121),
+                (8, 1080, 1920, k1.canny_frontend_max_window() + 2)):
+        assert _ring_geometry(k1, *bad) != 0, bad
+    monkeypatch.setattr(kfe._build, "load", lambda name: k1)
+    monkeypatch.setattr(kfe._build, "device_guard",
+                        lambda dev: contextlib.nullcontext())
+    assert kfe.ring_geometry(8, 1080, 1920, 121, None) == want
+    with pytest.raises(RuntimeError, match="ring_geometry: CUDA error 1"):
+        kfe.ring_geometry(8, 1080, 1920, 103, None)
 
 
 def test_emulated_scratch_path_past_the_ring(k1):
@@ -230,3 +284,42 @@ def test_emulated_plan_runs_k1_then_k2(k1, win, kind, k2_err, device, want):
                       (out if packed else edges).data_ptr(),
                       None if packed else out.data_ptr(), b, h, w, 1, 0, 0,
                       ctl.data_ptr(), total.data_ptr(), 5 << 32, 1234)]
+
+
+def test_emulated_plan_at_the_wide_cells_sigma(k1):
+    """The wide cell's configuration (``portbench/configs/cam1080wide.json``:
+    sigma 20, a window of 121 on K1's ring path, thresholds 4/12) on a
+    batch of 3 small frames through ``canny_run_plan``, K2 a stand-in that
+    runs the plain flood on the plan's masks: bit for bit the plain
+    pipeline's edges."""
+    conf = json.loads((ROOT / "portbench" / "configs" /
+                       "cam1080wide.json").read_text())
+    kern = gaussian_kernel(conf["sigma"])
+    mn, mx = conf["min_val"], conf["max_val"]
+    assert len(kern) == 121 and (mn, mx) == (4, 12)
+    _card(k1, 4)
+    assert kfe.k1_path(121, k1.canny_frontend_max_window()) == "ring"
+    b, h, w = 3, 96, 160
+    imgs = torch.stack([_frame(h, w, seed=s) for s in range(b)])
+    taps = torch.from_numpy(kern)
+    weak = torch.zeros((b, h, cdiv(w, 32)), dtype=torch.uint32)
+    strong, edges = torch.zeros_like(weak), torch.zeros_like(weak)
+    out = torch.zeros((b, h, w), dtype=torch.int16)
+    ctl = torch.zeros(5, dtype=torch.int64)
+    total = torch.zeros(1, dtype=torch.int64)
+
+    def flood(*args):
+        out.copy_(khp.hysteresis_packed(weak, strong, h, w,
+                                        edges_int16=True))
+        return 0
+
+    k2 = FLOOD(flood)
+    args = kplan.Args(taps.data_ptr(), weak.data_ptr(), strong.data_ptr(),
+                      edges.data_ptr(), ctl.data_ptr(), total.data_ptr(), 0,
+                      ctypes.cast(k2, ctypes.c_void_p).value, 0, b, h, w,
+                      121, mn, mx, 0)
+    run = kplan._RUN(("canny_run_plan", k1))
+    assert run(ctypes.addressof(args), imgs.data_ptr(), out.data_ptr(),
+               1 << 32) == 0
+    want = CannyTorch(conf["sigma"], device="cpu").batch(imgs, mn, mx)
+    assert torch.equal(out, want) and (out == 255).any()

@@ -80,6 +80,21 @@ def test_plan_key_joins_what_the_kernels_take_alike():
     assert key((2, 70), (30, 90), True) != key((2, 70), (30, 90))
 
 
+GEOMETRY_CALLS = []
+
+
+def _ring_geometry(b, oh, ow, window, device):
+    """A stand-in for the library's ring geometry: numbers of its shape."""
+    GEOMETRY_CALLS.append((b, oh, ow, window))
+    return kfe.RingGeometry(132, ow, 1, oh, b * ow, b * ow * (oh + window),
+                            b * ow * oh)
+
+
+def _ring():
+    return (kfe.ring_launches, kfe.ring_blocks, kfe.ring_xpass_rows,
+            kfe.ring_out_rows)
+
+
 @pytest.fixture
 def stand_in(monkeypatch):
     """``kernels.plan`` on the CPU with an empty cache, every tensor taken
@@ -89,11 +104,13 @@ def stand_in(monkeypatch):
     calls = []
 
     def build(key):
-        shape = key[2]
+        shape, window = key[2], key[5][0]
+        b = shape[0] if len(shape) == 3 else 1
         p = kplan.Plan()
         p.shape, p.dtype = tuple(shape), torch.int16
         p.device, p.addr, p.keep = torch.device("cpu"), 0, key
-        p.batch, p.ring = len(shape) == 3 and shape[0] > 1, False
+        p.batch = len(shape) == 3 and shape[0] > 1
+        p.ring = kfe.ring_counts(b, *shape[-2:], window, p.device)
         p.run = lambda addr, img, out, token: calls.append(
             (key, img, out, token)) or 0
         p.spare = []
@@ -101,6 +118,8 @@ def stand_in(monkeypatch):
 
     monkeypatch.setattr(kplan, "_plans", {})
     monkeypatch.setattr(kplan, "_build_plan", build)
+    monkeypatch.setattr(kfe, "max_window", lambda dev: 613)
+    monkeypatch.setattr(kfe, "ring_geometry", _ring_geometry)
     monkeypatch.setattr(kplan, "_raw_stream", lambda idx: 7)
     monkeypatch.setattr(kplan, "applies", lambda img, taps: True)
     monkeypatch.setattr(torch.Tensor, "is_cuda", True)
@@ -149,6 +168,23 @@ def test_a_plan_request_counts_its_launches_and_gives_a_fresh_output(
     view = batch.transpose(1, 2)
     kplan.run(view, taps, (MN, MX), False, False)
     assert stand_in[-1][1] not in (view.data_ptr(), batch.data_ptr())
+
+
+def test_ring_counters_advance_by_a_plans_geometry(stand_in):
+    """A request on a plan of K1's ring path adds one launch and the
+    geometry its plan worked out once, at its build, to K1's ring counters;
+    one on a tile plan adds nothing."""
+    batch = torch.zeros((3, 24, 40), dtype=torch.uint8)
+    GEOMETRY_CALLS.clear()
+    for window, per in ((121, (1, 120, 120 * 145, 120 * 24)),
+                        (11, (0, 0, 0, 0))):
+        taps = torch.from_numpy(_kern(window))
+        before = _ring()
+        for _ in range(3):
+            kplan.run(batch, taps, (4, 12), False, False)
+        moved = tuple(a - b for a, b in zip(_ring(), before))
+        assert moved == tuple(3 * n for n in per), window
+    assert GEOMETRY_CALLS == [(3, 24, 40, 121)]
 
 
 @pytest.mark.parametrize("err,msg,moved", [
@@ -209,7 +245,8 @@ def test_card_plan_equals_the_wrappers_and_the_plain_version(cuda_device,
                                                              window):
     """Every model method and mode on the tile path (11, 19 taps) and the
     ring path (121): one plan lookup and one launch of K1 and of K2 a
-    request, the edges those of the wrappers and of the plain version."""
+    request (on the ring path with its geometry in the ring counters), the
+    edges those of the wrappers and of the plain version."""
     kern = _kern(window)
     frames = torch.from_numpy(np.stack([synthetic_image(72, 100, seed=s)
                                         for s in range(3)]))
@@ -221,12 +258,16 @@ def test_card_plan_equals_the_wrappers_and_the_plain_version(cuda_device,
         for name in ("__call__", "packed", "batch", "batch_packed"):
             one = name in ("__call__", "packed")
             x, host = (imgs[0], frames[0]) if one else (imgs, frames)
-            before = _counts()
+            before, ring_before = _counts(), _ring()
             got = getattr(card, name)(x, MN, MX)
             b = int(not one)
             ring = int(window == 121)
             assert _moved(before)[:5] == (1, b, ring, 1, b)
             assert sum(_moved(before)[5:]) == 1
+            g = kfe.ring_geometry(1 if one else 3, 72, 100, 121, cuda_device)
+            assert tuple(a - b for a, b in zip(_ring(), ring_before)) == \
+                ((1, g.blocks, g.xpass_rows, g.out_rows) if ring else
+                 (0, 0, 0, 0))
             want = _wrappers(x, card.taps, mode == "strict-reference",
                              "packed" in name)
             assert torch.equal(got, want), (name, mode)

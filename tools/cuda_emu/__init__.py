@@ -21,7 +21,8 @@ The result shows that a kernel's indexing, barriers and arithmetic give the
 plain version's bits on the inputs it is run on; not that nvcc accepts the
 source, and nothing about its speed.  ``emu_sms``, ``emu_per_sm`` and
 ``emu_optin`` (C ints of the library) are the SMs, blocks an SM and opt-in
-shared memory the emulated card reports.  Needs g++.
+shared memory the emulated card reports; ``emu_grid`` (3 C unsigned ints)
+is the grid of the last launch.  Needs g++.
 """
 
 from __future__ import annotations

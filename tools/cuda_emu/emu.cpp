@@ -12,9 +12,11 @@ uint3_ threadIdx, blockIdx;
 dim3 blockDim, gridDim;
 int emu_error = 0;
 alignas(16) unsigned char emu_smem[232448 + 64];
-// the card the emulation answers for: SMs, blocks an SM, opt-in shared memory
+// the card the emulation answers for: SMs, blocks an SM, opt-in shared memory;
+// and the grid of the last launch
 extern "C" {
 int emu_sms = 4, emu_per_sm = 1, emu_optin = 232448;
+unsigned emu_grid[3];
 }
 int emu_attr(cudaDeviceAttr a) {
   return a == cudaDevAttrMultiProcessorCount ? emu_sms : emu_optin;
@@ -79,6 +81,9 @@ void emu_run(dim3 grid, int threads, size_t smem, std::function<void()> body) {
   }
   body_fn = body;
   gridDim = grid;
+  emu_grid[0] = grid.x;
+  emu_grid[1] = grid.y;
+  emu_grid[2] = grid.z;
   blockDim = dim3(threads);
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
