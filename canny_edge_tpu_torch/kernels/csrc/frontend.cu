@@ -530,12 +530,16 @@ cudaError_t launch(const Frame& f, const float* taps, int packed, int mn,
 // of step k.  Every x-pass row of the strip is computed once a run: a run
 // costs its R rows plus the prologue's 4 + 2c rows of x-pass, which the
 // x-pass warps compute alone.  The taps and the divisors of the strip's
-// columns and of the run's rows are built in shared memory once a block: a
-// position whose window lies in the image takes the full tap-order sum,
-// summed once.  The grid is (strips, runs, B): as many runs as fill the
-// card's co-resident blocks once, at most RMAX rows a run.  The arithmetic
-// is the tile path's: taps ascending (__fmul_rn, __fadd_rn), __fdiv_rn,
-// floorf on the y-pass.
+// columns are built in shared memory once a block, the divisors of the
+// run's rows RDIV rows at a time (the y-pass warps refill them every RDIV /
+// RTH steps): a position whose window lies in the image takes the full
+// tap-order sum, summed once, and only the rows within c of the image's
+// top or bottom sum their own.  The grid is (strips, runs, B), its run
+// count chosen by the card's waves (ring_launch_of): the fewest modelled
+// waves times a block's cost, so that a batch that fills the card's
+// co-resident blocks takes long runs and few prologues, and a single frame
+// short runs that fill the card once.  The arithmetic is the tile path's:
+// taps ascending (__fmul_rn, __fadd_rn), __fdiv_rn, floorf on the y-pass.
 
 constexpr int RT = 512;                // ring path threads: 16 warps
 constexpr int RG = 256;                // of which x-pass, and y-pass
@@ -544,7 +548,7 @@ constexpr int RTH = 32;                // output rows a step, and input rows
 constexpr int RSM_H = RTH + 4;         // blurred rows a step
 constexpr int RS = XW + 1;             // ring row stride, in floats
 constexpr int RMIR = 8;                // rows past the ring that mirror it
-constexpr int RMAX = 512;              // output rows a run at most
+constexpr int RDIV = 512;              // row divisors a block holds at once
 constexpr int RB = 6;                  // 16-byte input chunks a thread holds
 
 // named barriers (0 is __syncthreads): among the x-pass warps, among the
@@ -570,7 +574,7 @@ __host__ __device__ constexpr RingGeo ring_geo(int window) {
   const int sw = ((75 + 2 * c + 3) / 4 | 1) * 4;
   const int k_off = 0;
   const int cx_off = k_off + (window + 3) / 4 * 16;
-  const int sm_off = cx_off + (XW + RMAX + 4) * 4;
+  const int sm_off = cx_off + (XW + RDIV + 4) * 4;
   const int mag_off = sm_off + RSM_H * XW * 4;
   const int ring_off = mag_off + (RTH + 2) * MAG_W * 2;
   const int st_off = ring_off + ((ring + RMIR) * RS * 4 + 15) / 16 * 16;
@@ -578,7 +582,8 @@ __host__ __device__ constexpr RingGeo ring_geo(int window) {
                  st_off, st_off + RTH * sw + 16};
 }
 
-static_assert((XW + RMAX + 4) % 4 == 0 && (RSM_H * XW) % 4 == 0
+static_assert(RDIV % RTH == 0, "a refill of the row divisors a whole step's");
+static_assert((XW + RDIV + 4) % 4 == 0 && (RSM_H * XW) % 4 == 0
               && ((RTH + 2) * MAG_W * 2) % 16 == 0, "16-byte aligned sections");
 
 // acc[j] += value(o + u + j) * k[u] for u < 8 ascending, j < N <= 9, from
@@ -805,52 +810,24 @@ frontend_ring_kernel(Frame f, const float* __restrict__ taps, int window,
     store(0, min(RTH, P), next);
   }
   __syncthreads();
-  {
-    // tap-order f32 sums of the in-image weights, 1 off the image: the
-    // strip's XW columns, then the run's blurred rows, up to two a thread.
-    // Where the whole window lies in the image the sum is `full`, the sum
-    // of every tap; only the others sum their own.
-    const int nd = XW + steps * RTH + 4;
-    float sum[2];
-    int g[2], n[2];
-    bool part = false;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int d = tid + e * RT;
-      const bool is_x = d < XW;
-      g[e] = is_x ? col0 - 4 + d : rr0 - 2 + (d - XW);
-      n[e] = d >= nd ? 0 : is_x ? W : H;
-      sum[e] = g[e] >= 0 && g[e] < n[e] ? 0.0f : 1.0f;
-      part = part || (g[e] >= 0 && g[e] < n[e]
-                      && (g[e] - c < 0 || g[e] + c >= n[e]));
-    }
-    float full = 0.0f;
-    auto add = [&](int t, float kt) {
-      full = __fadd_rn(full, kt);
-      if (part) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int q = g[e] + t - c;
-          if (g[e] >= 0 && g[e] < n[e] && q >= 0 && q < n[e])
-            sum[e] = __fadd_rn(sum[e], kt);
-        }
-      }
-    };
-    int t = 0;
-    for (; t + 4 <= window; t += 4) {
-      const float4 k4 = taps4(k_s + t);
-      add(t, k4.x);
-      add(t + 1, k4.y);
-      add(t + 2, k4.z);
-      add(t + 3, k4.w);
-    }
-    for (; t < window; ++t) add(t, k_s[t]);
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const bool inside = g[e] - c >= 0 && g[e] + c < n[e];
-      if (tid + e * RT < nd) cnt_x[tid + e * RT] = inside ? full : sum[e];
-    }
-  }
+  // tap-order f32 sums of the in-image weights, 1 off the image: where the
+  // whole window lies in the image the sum is `full`, the sum of every tap;
+  // only the others sum their own, over the taps that land in the image
+  float full = 0.0f;
+  for (int t = 0; t < window; ++t) full = __fadd_rn(full, k_s[t]);
+  auto divisor = [&](int g, int n) {
+    if (g < 0 || g >= n) return 1.0f;
+    if (g - c >= 0 && g + c < n) return full;
+    float sum = 0.0f;
+    for (int t = max(0, c - g), t1 = min(window, n + c - g); t < t1; ++t)
+      sum = __fadd_rn(sum, k_s[t]);
+    return sum;
+  };
+  // the strip's XW columns, then the run's blurred rows 0..3 and those of
+  // its first RDIV / RTH steps
+  for (int d = tid, nd = XW + 4 + min(steps * RTH, RDIV); d < nd; d += RT)
+    cnt_x[d] = d < XW ? divisor(col0 - 4 + d, W)
+                      : divisor(rr0 - 2 + d - XW, H);
   __syncthreads();
 
   if (xw) {
@@ -897,6 +874,15 @@ frontend_ring_kernel(Frame f, const float* __restrict__ taps, int window,
     const int yx = gt % TILE_W, yq = gt / TILE_W;
     const int yt = TILE_W + (gt & 7), yr = gt >> 3;
     for (int k = 0; k < steps; ++k) {
+      // the divisor of blurred row b >= 4 lies at 4 + (b - 4) % RDIV: every
+      // RDIV / RTH steps the next steps' rows take the slots of the last
+      // ones' (read before the back half's barrier of step k - 1)
+      const int bd = 4 + (RTH * k) % RDIV;
+      if (k > 0 && bd == 4) {
+        for (int i = gt; i < min(RDIV, RTH * (steps - k)); i += RG)
+          cnt_y[4 + i] = divisor(rr0 + 2 + RTH * k + i, H);
+        bar_sync(BAR_Y, RG);
+      }
       bar_sync(BAR_FULL, RT);          // step k's rows are written
       // blurred rows b = 4 + 32k + ... take x-pass rows b .. b + 2c
       const int b0 = 4 + RTH * k;
@@ -912,8 +898,8 @@ frontend_ring_kernel(Frame f, const float* __restrict__ taps, int window,
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         sm[(4 + 8 * yq + j) * XW + yx] =
-            floorf(__fdiv_rn(acc[j], cnt_y[b0 + 8 * yq + j]));
-      sm[(4 + yr) * XW + yt] = floorf(__fdiv_rn(one[0], cnt_y[b0 + yr]));
+            floorf(__fdiv_rn(acc[j], cnt_y[bd + 8 * yq + j]));
+      sm[(4 + yr) * XW + yt] = floorf(__fdiv_rn(one[0], cnt_y[bd + yr]));
       bar_sync(BAR_Y, RG);
       back_half<RTH, BAR_Y>(f, sm, mag, rb0 + RTH * k, tx0, gt, packed, mn,
                             mx, nm_out, weak, strong);
@@ -930,15 +916,25 @@ int ring_smem_bytes(int window) { return ring_geo(window).bytes; }
 
 // The ring path's launch on B outputs of (oh, ow) at `window` taps on the
 // current device, worked out in one place for the launch and for
-// canny_frontend_ring_geometry: as many runs as fill the card's co-resident
-// blocks (slots) once, at most RMAX rows a run, R rows a run (a multiple of
-// RTH); a block x-passes the prologue's 4 + 2c rows and RTH rows a step for
-// its run's output rows.  blocks, xpass_rows and out_rows are summed over
-// the grid (strips, runs, B).
+// canny_frontend_ring_geometry.  A block x-passes the prologue's P = 4 + 2c
+// rows and RTH rows a step for its run's output rows; the grid is (strips,
+// runs, B).  Of the ways to cut oh into runs of R rows (a multiple of RTH),
+// the launch takes the one that minimises the grid's modelled time:
+// ceil(blocks / slots) waves of the card's co-resident blocks, each as long
+// as a block, w P + R step rows, where w (RING_W10 / 10) is a prologue row's
+// cost against a step row's (the x-pass warps run the prologue alone).  So
+// a batch that fills the card takes long runs and few prologues, a single
+// frame as many short runs as fill the card once.  blocks, xpass_rows and
+// out_rows are summed over the grid.
 struct RingLaunch {
   int slots, strips, runs, R;
   long long blocks, xpass_rows, out_rows;
 };
+
+// w in tenths: an x-pass warp's cycles a prologue row against a step row's
+// (tools/k1_phases.py on the H100: 0.59-0.65 on 8 1080p frames at 121
+// taps, 0.60-0.61 on one, 0.66-0.68 on one at 263)
+constexpr long long RING_W10 = 6;
 
 cudaError_t ring_launch_of(int B, int oh, int ow, int window,
                            RingLaunch* g) {
@@ -949,16 +945,27 @@ cudaError_t ring_launch_of(int B, int oh, int ow, int window,
                                      ring_smem_bytes(window), 8, &slots);
   if (e != cudaSuccess) return e;
   const int strips = (ow + TILE_W - 1) / TILE_W;
-  const int runs0 = max(max(1, slots / (strips * B)), (oh + RMAX - 1) / RMAX);
-  const int R = ((oh + runs0 - 1) / runs0 + RTH - 1) / RTH * RTH;
-  const int runs = (oh + R - 1) / R;
+  const long long columns = (long long)strips * B, P = 4 + 2 * (window / 2);
+  // n runs asked: runs of R rows, ceil(oh / R) <= n of them (at most 65535,
+  // the grid's y); on equal costs the fewer runs
+  int runs = 1, R = (oh + RTH - 1) / RTH * RTH;
+  long long best = -1;
+  for (int n = 1, most = min((oh + RTH - 1) / RTH, 65535); n <= most; ++n) {
+    const int r = ((oh + n - 1) / n + RTH - 1) / RTH * RTH;
+    const int m = (oh + r - 1) / r;
+    const long long cost =
+        (columns * m + slots - 1) / slots * (RING_W10 * P + 10LL * r);
+    if (best < 0 || cost < best) {
+      best = cost;
+      runs = m;
+      R = r;
+    }
+  }
   // every run but the last steps through R rows; the last through its rows
   // rounded up to a step
   const int last = (oh - (runs - 1) * R + RTH - 1) / RTH * RTH;
-  const long long columns = (long long)strips * B;
   *g = RingLaunch{slots, strips, runs, R, columns * runs,
-                  columns * ((long long)runs * (4 + 2 * (window / 2))
-                             + (long long)(runs - 1) * R + last),
+                  columns * (runs * P + (long long)(runs - 1) * R + last),
                   columns * oh};
   return cudaSuccess;
 }

@@ -11,7 +11,9 @@ blocks down a column), so runs, steps, the ring's wrap and its mirror rows
 are all crossed.  Its answer for the largest window of the tile and ring
 paths is the largest whose shared memory fits, at two limits, and the ring
 path's launch geometry (``canny_frontend_ring_geometry``) is the grid it
-launches.  The launch plan's entry (``canny_run_plan``) runs K1 into the
+launches, its runs chosen by the card's waves (one run a strip for the
+wide cell's batch, runs past the 512 rows whose divisors a block holds at
+once).  The launch plan's entry (``canny_run_plan``) runs K1 into the
 plan's masks, then K2's entry, here a stand-in that records its arguments
 or runs the plain flood.  What only the card shows (that nvcc builds the
 source, its speed) is in the ``cuda``-marked tests.  Tolerance: 0
@@ -21,6 +23,7 @@ differing values.
 import contextlib
 import ctypes
 import json
+import re
 from pathlib import Path
 
 import numpy as np
@@ -46,6 +49,24 @@ ROOT = Path(__file__).resolve().parents[1]
 def k1(tmp_path_factory):
     """K1 built for the CPU, once for the module (~6 s)."""
     return build("frontend", tmp_path_factory.mktemp("cuda_emu"))
+
+
+@pytest.fixture(scope="module")
+def cards(tmp_path_factory):
+    """K1 built once for each emulated card of ``sms`` SMs asked for, that
+    card made current: the library keeps a window's co-resident blocks from
+    its first ask, so a test whose ring geometry rests on the card's size
+    takes a library of its own card (~6 s a build)."""
+    libs = {}
+
+    def card(sms):
+        if sms not in libs:
+            libs[sms] = build("frontend",
+                              tmp_path_factory.mktemp(f"cuda_emu_{sms}"))
+        _card(libs[sms], sms)
+        return libs[sms]
+
+    return card
 
 
 def _card(lib, sms, optin=232448):
@@ -179,20 +200,17 @@ def test_emulated_block_equals_plain(k1, row0, col0, hl, wl):
                                                else want))
 
 
-def test_emulated_ring_geometry_of_the_wide_cell(k1, monkeypatch):
-    """A batch of 8 1080p frames at 121 taps: on a card of fewer than 240
-    co-resident blocks (the H100's 132 SMs; the library keeps a window's
-    count from its first ask), 30 strips, 3 runs of 384 rows, 720 blocks,
-    each x-passing its rows rounded up to 32 and 124 rows of prologue (1460
-    rows a strip for 1080 out: a recompute of 1.35); no geometry off the
-    ring path, for an empty batch or past the ring's shared memory.  The
-    wrapper (``kernels/frontend.py:ring_geometry``) reads the same
-    entry."""
-    _card(k1, 132)
+def test_emulated_ring_geometry_of_the_wide_cell(cards, monkeypatch):
+    """A batch of 8 1080p frames at 121 taps on the H100's 132 co-resident
+    blocks: 30 strips, 1 run of 1088 rows, 240 blocks in 2 waves, each
+    x-passing its 1088 rows and 124 rows of prologue (1212 rows a strip
+    for 1080 out: a recompute of 1.12); no geometry off the ring path, for
+    an empty batch or past the ring's shared memory.  The wrapper
+    (``kernels/frontend.py:ring_geometry``) reads the same entry."""
+    k1 = cards(132)
     got = _ring_geometry(k1, 8, 1080, 1920, 121)
-    want = kfe.RingGeometry(got.slots, 30, 3, 384, 720, 240 * 1460,
-                            240 * 1080)
-    assert got == want and 1 <= got.slots < 240
+    want = kfe.RingGeometry(132, 30, 1, 1088, 240, 240 * 1212, 240 * 1080)
+    assert got == want
     for bad in ((8, 1080, 1920, 103), (8, 1080, 1920, 120),
                 (0, 1080, 1920, 121), (8, 0, 1920, 121),
                 (8, 1080, 1920, k1.canny_frontend_max_window() + 2)):
@@ -203,6 +221,85 @@ def test_emulated_ring_geometry_of_the_wide_cell(k1, monkeypatch):
     assert kfe.ring_geometry(8, 1080, 1920, 121, None) == want
     with pytest.raises(RuntimeError, match="ring_geometry: CUDA error 1"):
         kfe.ring_geometry(8, 1080, 1920, 103, None)
+
+
+# a prologue row's cost against a step row's, in tenths, as the launch
+# rule prices it (csrc/frontend.cu:RING_W10)
+RING_W10 = int(re.search(r"constexpr long long RING_W10 = (\d+);",
+                         (ROOT / "canny_edge_tpu_torch" / "kernels" / "csrc"
+                          / "frontend.cu").read_text())[1])
+
+
+def _modelled(slots, b, oh, ow, window, runs, rows):
+    """The launch rule's cost of a grid of ``runs`` runs of ``rows`` rows:
+    waves of the card's co-resident blocks times a block's prologue and
+    steps, in tenths of a step row."""
+    blocks = cdiv(ow, 64) * b * runs
+    return cdiv(blocks, slots) * (RING_W10 * (4 + window // 2 * 2)
+                                  + 10 * rows)
+
+
+def _old_rule(slots, b, oh, ow):
+    """The runs and rows that the rule before the wave model chose: as many
+    runs as filled the co-resident blocks once, at most 512 rows a run."""
+    runs = max(max(1, slots // (cdiv(ow, 64) * b)), cdiv(oh, 512))
+    rows = cdiv(cdiv(oh, runs), 32) * 32
+    return cdiv(oh, rows), rows
+
+
+# (frames, rows, columns, window, the runs and rows wanted or None): a
+# single 1080p frame keeps 4 runs of 288 rows, a 4K frame takes 2 of 1088
+# (5 of 448 before); then a grid of batches, shapes and ring windows
+RULE = [(1, 1080, 1920, 121, (4, 288)), (1, 2160, 3840, 121, (2, 1088))] + [
+    (b, oh, ow, win, None) for win in (105, 121, 263, 613) for b in (1, 8)
+    for oh, ow in ((1, 1), (37, 1000), (1080, 1920), (2160, 3840),
+                   (100000, 64))]
+
+
+@pytest.mark.parametrize("b,oh,ow,win,want", RULE)
+def test_emulated_ring_runs_by_the_cards_waves(cards, b, oh, ow, win, want):
+    """On the H100's 132 co-resident blocks, the ring path's runs are the
+    rule's: runs of a multiple of 32 rows that cover the frame, within
+    CUDA's grid limits, and a modelled time never above the old rule's;
+    the x-pass rows are each run's prologue and steps."""
+    k1 = cards(132)
+    g = _ring_geometry(k1, b, oh, ow, win)
+    assert g.slots == 132 and g.strips == cdiv(ow, 64)
+    if want is not None:
+        assert (g.runs, g.rows) == want
+    assert g.rows % 32 == 0 and (g.runs - 1) * g.rows < oh <= g.runs * g.rows
+    assert g.strips < 2 ** 31 and g.runs <= 65535 and b <= 65535
+    assert g.blocks == g.strips * g.runs * b
+    last = cdiv(oh - (g.runs - 1) * g.rows, 32) * 32
+    assert g.xpass_rows == g.strips * b * (
+        g.runs * (4 + win // 2 * 2) + (g.runs - 1) * g.rows + last)
+    assert g.out_rows == g.strips * b * oh
+    assert _modelled(132, b, oh, ow, win, g.runs, g.rows) <= _modelled(
+        132, b, oh, ow, win, *_old_rule(132, b, oh, ow))
+
+
+def test_emulated_long_run_equals_plain(cards):
+    """One run longer than the 512 rows whose divisors a block holds at
+    once (a 1100 x 64 frame at 105 taps on one co-resident block: 1 run of
+    1120 rows, 35 steps), so the y-pass warps refill the row divisors twice
+    and the last refill reaches the image's bottom border: equal to the
+    plain front end."""
+    k1 = cards(1)
+    kern = gaussian_kernel((105 // 2 - 0.5) / 3)
+    assert len(kern) == 105
+    hw = (1100, 64)
+    img = _frame(*hw, seed=11)
+    taps = torch.from_numpy(kern)
+    ref = window.frontend_nm(img, kern)
+    assert (ref > 0).any()
+    for thr in (None, (MN, MX)):
+        got, out = _outputs((), *hw, thr)
+        assert k1.canny_frontend(img.data_ptr(), 1, *hw, taps.data_ptr(),
+                                 105, *out, None) == 0
+        want = (ref,) if thr is None else window.frontend_nm(img, kern, thr)
+        assert all(_same(g, w) for g, w in zip(got, want))
+    _launched_is_the_geometry(k1, 1, *hw, 105)
+    assert _ring_geometry(k1, 1, *hw, 105)[1:4] == (1, 1, 1120)
 
 
 def test_emulated_scratch_path_past_the_ring(k1):

@@ -246,7 +246,8 @@ def test_card_plan_equals_the_wrappers_and_the_plain_version(cuda_device,
     """Every model method and mode on the tile path (11, 19 taps) and the
     ring path (121): one plan lookup and one launch of K1 and of K2 a
     request (on the ring path with its geometry in the ring counters), the
-    edges those of the wrappers and of the plain version."""
+    edges those of the wrappers and of the plain version; at 121 taps a
+    batch of 8 1080p frames adds the ring geometry of one run a strip."""
     kern = _kern(window)
     frames = torch.from_numpy(np.stack([synthetic_image(72, 100, seed=s)
                                         for s in range(3)]))
@@ -272,6 +273,20 @@ def test_card_plan_equals_the_wrappers_and_the_plain_version(cuda_device,
                              "packed" in name)
             assert torch.equal(got, want), (name, mode)
             assert torch.equal(got.cpu(), getattr(cpu, name)(host, MN, MX))
+    if window == 121:
+        # the wide cell's shape: a plan's counters are the launch rule's
+        # one run a strip on the H100's 132 co-resident blocks
+        card = CannyTorch.from_numpy_params(kern)
+        wide = torch.from_numpy(np.stack([
+            synthetic_image(1080, 1920, seed=s) for s in range(8)])).to(
+                cuda_device)
+        ring_before = _ring()
+        got = card.batch(wide, MN, MX)
+        assert tuple(a - b for a, b in zip(_ring(), ring_before)) == \
+            (1, 240, 240 * 1212, 240 * 1080)
+        assert kfe.ring_geometry(8, 1080, 1920, 121, cuda_device)[:4] == \
+            (132, 30, 1, 1088)
+        assert torch.equal(got, _wrappers(wide, card.taps, False, False))
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """Where a block of K1's ring path (windows from 105 taps) spends its time.
 
-    python3 tools/k1_phases.py [--windows 105,121,263,601]
+    python3 tools/k1_phases.py [--windows 105,121,263,601] [--batch B]
+                               [--tree DIR]
 
 The card has no profiler that looks inside a kernel, so this tool builds a
 copy of ``canny_edge_tpu_torch/kernels/csrc/frontend.cu`` whose ring kernel
@@ -15,12 +16,16 @@ y-pass warp (thread 256) the set-up, the wait for the prologue's rows, its
 4 blurred rows, then in each step the wait for the step's rows, the
 y-pass, the group's barrier, the back half and the barrier with the copy
 of 4 blurred rows.  Both threads are of the block of the second strip and
-second run.  A wait or a barrier is what a warp waits for the others.  Runs
-the copy in threshold mode on a 1080p frame (``tools/k1_sweep.py``'s) and
-prints cycles per phase, the kernel's device time (CUDA events, median of
-5 calls) and the card's name and power limit.  The copy goes to the
-package's build directory; the package's own library is not touched.
-Needs the CUDA toolkit and a GPU.
+second run (the first run where the strip has one).  A wait or a barrier
+is what a warp waits for the others.  Runs the copy in threshold mode on a
+batch of ``B`` 1080p frames (``tools/k1_sweep.py``'s) and prints the
+launch's runs and rows, cycles per phase, the prologue's share of the
+x-pass warp's cycles, a prologue row's cycles against a step row's (the
+weight ``w`` of ``csrc/frontend.cu:ring_launch_of``), the kernel's device
+time (CUDA events, median of 5 calls) and the card's name and power limit.
+``--tree`` stamps another tree's source (a parent's, to compare).  The
+copy goes to the package's build directory; the package's own library is
+not touched.  Needs the CUDA toolkit and a GPU.
 """
 
 from __future__ import annotations
@@ -93,7 +98,8 @@ PATCHES = [
      "    }\n  }\n}\n",
      "      for (int i = gt; i < 4 * XW; i += RG) sm[i] = sm[RTH * XW + i];\n"
      "      lap(7);\n    }\n  }\n"
-     "  if (blockIdx.x == 1 && blockIdx.y == 1 && blockIdx.z == 0\n"
+     "  if (blockIdx.x == 1 && blockIdx.y == (gridDim.y > 1)\n"
+     "      && blockIdx.z == 0\n"
      "      && (tid == 0 || tid == RG)) {\n"
      "    for (int i = 0; i < 9; ++i) g_k1_prof[tid / RG][i] = lap_acc[i];\n"
      "    g_k1_prof[tid / RG][9] = steps;\n"
@@ -108,6 +114,8 @@ PATCHES = [
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--windows", default="105,121,263,601")
+    ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--tree", default=ROOT)
     args = ap.parse_args()
 
     import numpy as np
@@ -118,7 +126,9 @@ def main():
     from canny_edge_tpu_torch.ops.gaussian import gaussian_kernel
     from tools.k1_sweep import MN, MX, sweep_frame
 
-    src = (_build.CSRC / "frontend.cu").read_text()
+    csrc = os.path.join(os.path.abspath(args.tree), "canny_edge_tpu_torch",
+                        "kernels", "csrc")
+    src = open(os.path.join(csrc, "frontend.cu")).read()
     for old, new in PATCHES:
         if src.count(old) != 1:
             raise SystemExit(f"the source moved: {old!r} occurs "
@@ -128,28 +138,29 @@ def main():
     cu = _build.BUILD_DIR / "frontend_stamped.cu"
     so = _build.BUILD_DIR / "libfrontend_stamped.so"
     cu.write_text(src)
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
-                    str(_build.CSRC), "-o", str(so), str(cu)], check=True)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", csrc,
+                    "-o", str(so), str(cu)], check=True)
     lib = ctypes.CDLL(str(so))
-    lib.canny_frontend.argtypes = _build.SIGNATURES["frontend"][
-        "canny_frontend"]
+    for entry in ("canny_frontend", "canny_frontend_ring_geometry"):
+        getattr(lib, entry).argtypes = _build.SIGNATURES["frontend"][entry]
     lib.canny_frontend_stamps.argtypes = [ctypes.c_void_p]
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     dev = torch.device("cuda:0")
-    h, w = 1080, 1920
-    img = torch.from_numpy(sweep_frame(h, w, make_image)).to(dev)
+    h, w, b = 1080, 1920, args.batch
+    img = torch.from_numpy(sweep_frame(h, w, make_image)).to(dev).expand(
+        b, h, w).contiguous()
     wd = -(-w // 32)
-    weak = torch.empty((h, wd), dtype=torch.int32, device=dev)
+    weak = torch.empty((b, h, wd), dtype=torch.int32, device=dev)
     strong = torch.empty_like(weak)
     stream = torch.cuda.current_stream().cuda_stream
     for win in map(int, args.windows.split(",")):
         taps = torch.from_numpy(gaussian_kernel((win // 2 - 0.5) / 3)).to(dev)
 
         def call():
-            err = lib.canny_frontend(img.data_ptr(), 1, h, w, taps.data_ptr(),
+            err = lib.canny_frontend(img.data_ptr(), b, h, w, taps.data_ptr(),
                                      win, 1, MN, MX, None, weak.data_ptr(),
                                      strong.data_ptr(), stream)
             if err:
@@ -157,26 +168,34 @@ def main():
 
         samples, ms = [], []
         for _ in range(5):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
             call()
-            b.record()
+            e1.record()
             torch.cuda.synchronize()
-            ms.append(a.elapsed_time(b))
+            ms.append(e0.elapsed_time(e1))
             stamps = (ctypes.c_longlong * 32)()
             lib.canny_frontend_stamps(stamps)
             samples.append(list(stamps))
         med = np.median(np.array(samples), axis=0)
-        print(f"window {win}: {float(np.median(ms)):.4f} ms a call (events, "
-              f"median of 5); block (1, 1): {int(med[9])} steps; cycles "
-              f"per phase of an x-pass warp (thread 0) | a y-pass warp "
-              f"(thread 256)")
+        geo = (ctypes.c_longlong * 7)()
+        lib.canny_frontend_ring_geometry(b, h, w, win, geo)
+        print(f"window {win}, {b} frames: {float(np.median(ms)):.4f} ms a "
+              f"call (events, median of 5); {geo[2]} runs of {geo[3]} rows, "
+              f"{geo[4]} blocks on {geo[0]} slots; block (1, "
+              f"{int(geo[2] > 1)}): {int(med[9])} steps; cycles per phase "
+              f"of an x-pass warp (thread 0) | a y-pass warp (thread 256)")
         for i, (xname, yname) in enumerate(PHASES):
             print(f"  {xname:>20}: {int(med[i]):9d} | {yname:>22}: "
                   f"{int(med[16 + i]):9d}")
         print(f"  {'in the kernel':>20}: {int(sum(med[:9])):9d} | "
               f"{'':>22}  {int(sum(med[16:25])):9d}")
+        # a prologue row (4 + 2c of them) against a step row (32 a step)
+        pro, step = med[1] / (4 + win // 2 * 2), sum(med[2:9]) / (32 * med[9])
+        print(f"  prologue {med[1] / sum(med[:9]):.1%} of the x-pass warp's "
+              f"cycles; set-up {med[0] / sum(med[:9]):.1%}; a prologue row "
+              f"{pro:.0f} cycles, a step row {step:.0f}: w = {pro / step:.3f}")
 
 
 if __name__ == "__main__":
