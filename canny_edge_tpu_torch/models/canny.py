@@ -5,18 +5,19 @@ that calls them, :class:`CannyTorch` (``CannyTPU``).
 
 ``backend="fused"``: K1 (front end with the threshold compares and the
 32-to-1 packing) -> K2 (packed hysteresis flood, which also writes the
-int16 {0, 255} map); on the card, where K1's tile or ring path takes the
-window, one C call from a launch plan kept per configuration
-(:mod:`..kernels.plan`).  ``"pallas"``: :func:`..kernels.fused.canny_fused` (K1
-in NMS mode, then K2 through its NMS-map entry).  ``"xla"``: the plain front
-end and the plain packed flood, no kernel.  The ``packed`` entry points run
-the fused engines whatever the backend, as in JAX.  Every function runs
-where its input tensor lies: on a CUDA tensor the stages are the
-hand-written kernels, on a CPU tensor the same wrappers run their plain
-PyTorch versions; a NumPy input goes to ``device``, the card unless
-``device="cpu"``.  A ``(B, H, W)`` batch on ``fused`` or ``pallas`` is one
-launch of each stage, every frame converging on its own (JAX's ``vmap`` and
-``lax.map``); ``xla`` runs it a frame at a time.  ``with_intermediates`` runs the unpacked stage path of
+int16 {0, 255} map), all in :func:`_fused`: on the card, where K1's tile or
+ring path takes the window, one C call from a launch plan kept per
+configuration (:mod:`..kernels.plan`).  ``"pallas"``:
+:func:`..kernels.fused.canny_fused` (K1 in NMS mode, then K2 through its
+NMS-map entry).  ``"xla"``: the plain front end and the plain packed flood,
+no kernel.  The ``packed`` entry points run the fused engines whatever the
+backend, as in JAX.  Every function runs where its input tensor lies: on a
+CUDA tensor the stages are the hand-written kernels, on a CPU tensor the
+same wrappers run their plain PyTorch versions; a NumPy input goes to
+``device``, the card unless ``device="cpu"``.  A ``(B, H, W)`` batch on
+``fused`` or ``pallas`` is one launch of each stage, every frame converging
+on its own (JAX's ``vmap`` and ``lax.map``); ``xla`` runs it a frame at a
+time.  ``with_intermediates`` runs the unpacked stage path of
 :mod:`..ops.stages` in plain PyTorch wherever the input lies.
 """
 
@@ -150,15 +151,26 @@ def _canny_frames(img, min_val, max_val, kernel_vals, backend, strict):
     if backend == "pallas":
         return canny_fused(img, min_val, max_val, kernel_vals=kernel_vals,
                            strict=strict)
-    h, w = img.shape[-2:]
-    taps = taps_tensor(kernel_vals, img.device)
-    out = plan.run(img, taps, threshold_bounds((min_val, max_val)), strict,
-                   False)
-    if out is not None:
-        return out
-    weak, strong = frontend(img, taps, (min_val, max_val))
-    return hysteresis_packed(weak, strong, h, w, strict=strict,
-                             edges_int16=True)
+    return _fused(img, taps_tensor(kernel_vals, img.device),
+                  threshold_bounds((min_val, max_val)), strict, False)
+
+
+def _fused(img, taps, bounds, strict: bool, packed: bool) -> torch.Tensor:
+    """K1 with the thresholds, then K2, on a frame or a batch where ``img``
+    lies: the request's launch plan where one applies
+    (:func:`..kernels.plan.run`), else K1's and K2's wrappers, one launch
+    of each.  ``taps``: a float32 tensor on ``img``'s device; ``bounds``:
+    K1's two integer bounds (:func:`..kernels.frontend.threshold_bounds`;
+    an int32 threshold is its own).  The int16 map, or with ``packed`` the
+    uint32 words; an input without a pixel gives :func:`_empty`'s."""
+    out = plan.run(img, taps, bounds, strict, packed)
+    if out is None:
+        out = _empty(img, "fused", packed)
+    if out is None:
+        weak, strong = frontend(img, taps, bounds)
+        out = hysteresis_packed(weak, strong, *img.shape[-2:], strict=strict,
+                                edges_int16=not packed)
+    return out
 
 
 def canny_fn_packed(img, min_val, max_val, *, kernel_vals,
@@ -180,14 +192,8 @@ def canny_fn_packed(img, min_val, max_val, *, kernel_vals,
             trace.end("entry.check", chk)
         if out is not None:
             return out
-        h, w = img.shape[-2:]
-        taps = taps_tensor(kernel_vals, img.device)
-        out = plan.run(img, taps, threshold_bounds((min_val, max_val)),
-                       strict, True)
-        if out is not None:
-            return out
-        weak, strong = frontend(img, taps, (min_val, max_val))
-        return hysteresis_packed(weak, strong, h, w, strict=strict)
+        return _fused(img, taps_tensor(kernel_vals, img.device),
+                      threshold_bounds((min_val, max_val)), strict, True)
     finally:
         if root:
             trace.end_entry(root)
@@ -293,8 +299,7 @@ class CannyTorch:
 
     def _setup(self, kernel, hysteresis_mode, device, backend,
                hysteresis_steps):
-        if hysteresis_mode not in MODES:
-            raise ValueError(f"unknown hysteresis mode: {hysteresis_mode!r}")
+        _strict(hysteresis_mode)
         _check_backend(backend)
         kernel = np.asarray(kernel, np.float32)
         if kernel.ndim != 1 or kernel.shape[0] % 2 != 1:
@@ -319,33 +324,26 @@ class CannyTorch:
         return uint8_input(img, self.device)
 
     # Each method is the root span of its request (``entry``), and its own
-    # checks are ``entry.check`` (``utils/trace.py``).  On the ``fused``
-    # backend a request on the card takes its launch plan
-    # (:mod:`..kernels.plan`) where one applies; the rest, and every
-    # request elsewhere, go through the functional entry points.
+    # checks are ``entry.check`` (``utils/trace.py``).  A request then goes
+    # once to :func:`_fused` (``packed``, or the ``fused`` backend), else to
+    # the functional entry point of its backend.
 
     def _request(self, img, min_val, max_val, *, packed: bool, batch: bool):
         root = trace.RECORDING and trace.entry()
         try:
             chk = root and trace.begin()
-            if batch:
-                img = self._batch_input(img, min_val, max_val)
-            else:
-                self._validate(img, min_val, max_val)
-                img = self._input(img)
+            if batch and img.ndim != 3:
+                raise ValueError(f"{'batch_packed' if packed else 'batch'} "
+                                 f"expects (B, H, W)")
+            self._validate(img[0] if batch else img, min_val, max_val)
+            img = self._input(img)
             bounds = _truncated(min_val, max_val)
             if chk:
                 trace.end("entry.check", chk)
-            if self.backend == "fused" and self.hysteresis_mode in MODES:
+            if packed or self.backend == "fused":
                 # a truncated threshold is its own bound
-                out = plan.run(img, self.taps, bounds,
-                               self.hysteresis_mode == "strict-reference",
-                               packed)
-                if out is not None:
-                    return out
-            if packed:
-                return canny_fn_packed(img, *bounds, kernel_vals=self.taps,
-                                       hysteresis_mode=self.hysteresis_mode)
+                return _fused(img, self.taps, bounds,
+                              _strict(self.hysteresis_mode), packed)
             fn = canny_fn_batched if batch else canny_fn
             return fn(img, *bounds, kernel_vals=self.taps,
                       backend=self.backend,
@@ -378,12 +376,6 @@ class CannyTorch:
             self._input(img), *_truncated(min_val, max_val),
             kernel_vals=self.kernel,
             hysteresis_steps=self.hysteresis_steps)
-
-    def _batch_input(self, imgs, min_val, max_val):
-        if imgs.ndim != 3:
-            raise ValueError("batch expects (B, H, W)")
-        self._validate(imgs[0], min_val, max_val)
-        return self._input(imgs)
 
     @staticmethod
     def _validate(img, min_val, max_val):

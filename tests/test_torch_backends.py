@@ -6,6 +6,7 @@ backend and the NumPy oracle.  Tolerance: 0 differing pixels.
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's threads: a worker's share)
 
 from canny_edge_tpu import golden
 from canny_edge_tpu.golden.reference import gaussian_kernel

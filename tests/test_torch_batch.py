@@ -19,6 +19,7 @@ JAX reference is computed once a module (``_jax``).
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a worker's share)
 
 from canny_edge_tpu.golden.reference import gaussian_kernel
 from canny_edge_tpu_torch import CannyTorch

@@ -16,6 +16,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a worker's share)
 
 from canny_edge_tpu import golden as jgolden
 from canny_edge_tpu.io.imageio import synthetic_image

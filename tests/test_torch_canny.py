@@ -12,6 +12,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a worker's share)
 
 from canny_edge_tpu_torch import CannyTorch
 from canny_edge_tpu.io.imageio import synthetic_image
@@ -139,6 +140,49 @@ def test_bad_mode_and_batch_shape():
         CannyTorch(1.0, hysteresis_mode="bfs", device="cpu")
     with pytest.raises(ValueError):
         CannyTorch(1.0, device="cpu").batch(np.zeros((4, 4), np.uint8), 1, 2)
+
+
+@pytest.mark.parametrize("method", ["batch", "batch_packed"])
+def test_batch_shape_message_vs_cannytpu(method):
+    """A batch method refuses a frame with ``CannyTPU``'s message, as a
+    ``ValueError`` where JAX asserts (ROADMAP, "Divergences on purpose")."""
+    frame = synthetic_image(24, 40, seed=0)
+    with pytest.raises(AssertionError) as theirs:
+        getattr(_tpu(1.0, "component"), method)(frame, 30, 90)
+    with pytest.raises(ValueError) as ours:
+        getattr(CannyTorch(1.0, device="cpu"), method)(frame, 30, 90)
+    assert str(ours.value) == str(theirs.value) == \
+        f"{method} expects (B, H, W)"
+
+
+REQUESTS = ["__call__", "packed", "batch", "batch_packed", "canny_fn",
+            "canny_fn_batch", "canny_fn_packed"]
+
+
+@pytest.mark.parametrize("kind", REQUESTS)
+def test_a_request_asks_for_its_launch_plan_once(kind, monkeypatch):
+    """Every ``fused`` request asks :func:`kernels.plan.run` once, whether
+    a plan takes it or (as on the CPU) K1's and K2's wrappers do."""
+    from canny_edge_tpu_torch.kernels import plan
+    from canny_edge_tpu_torch.models.canny import canny_fn, canny_fn_packed
+
+    calls, run = [], plan.run
+
+    def counting(img, taps, bounds, strict, packed):
+        calls.append(packed)
+        return run(img, taps, bounds, strict, packed)
+
+    monkeypatch.setattr(plan, "run", counting)
+    frames = np.stack([synthetic_image(24, 40, seed=s) for s in range(2)])
+    model = CannyTorch(1.0, device="cpu")
+    if kind.startswith("canny_fn"):
+        fn = canny_fn_packed if kind == "canny_fn_packed" else canny_fn
+        extra = {} if kind == "canny_fn_packed" else {"backend": "fused"}
+        fn(frames if kind != "canny_fn" else frames[0], 30, 90,
+           kernel_vals=model.taps, device="cpu", **extra)
+    else:
+        getattr(model, kind)(frames if "batch" in kind else frames[0], 30, 90)
+    assert calls == ["packed" in kind]
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

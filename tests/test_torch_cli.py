@@ -15,6 +15,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_threads
 
 from canny_edge_tpu import golden
 from canny_edge_tpu.cli import main as jax_main
@@ -260,7 +261,8 @@ def test_python_dash_m_entry_point(tmp_path, test_image):
     r = subprocess.run(
         [sys.executable, "-m", "canny_edge_tpu_torch.cli", src, "1.0", "50",
          "150", "-o", str(tmp_path / "out.png"), "--device", "cpu"],
-        capture_output=True, text=True, cwd=ROOT, timeout=300)
+        capture_output=True, text=True, cwd=ROOT, timeout=300,
+        env=torch_threads.child_env())
     assert r.returncode == 0, r.stderr
     assert "Execution time:" in r.stdout
     np.testing.assert_array_equal(

@@ -29,6 +29,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a worker's share)
 
 from bench_torch import make_image
 from canny_edge_tpu_torch import CannyTorch

@@ -20,6 +20,7 @@ import re
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a worker's share)
 
 from canny_edge_tpu import golden
 from canny_edge_tpu_torch.kernels import _build, _scratch

@@ -9,6 +9,7 @@ arrays; JAX runs on the CPU and the Pallas front end in interpret mode.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a worker's share)
 
 from canny_edge_tpu.golden.reference import gaussian_kernel as golden_kernel
 from canny_edge_tpu_torch.kernels import frontend as kfe

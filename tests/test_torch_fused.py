@@ -12,6 +12,7 @@ arrays; JAX runs on the CPU.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a worker's share)
 
 from canny_edge_tpu import golden
 from canny_edge_tpu.golden.reference import gaussian_kernel

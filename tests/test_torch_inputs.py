@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a worker's share)
 
 from bench_torch import make_image
 from canny_edge_tpu.models import CannyTPU

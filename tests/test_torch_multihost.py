@@ -23,6 +23,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a worker's share)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPE = (64, 128)

@@ -7,6 +7,7 @@ the XLA flood, in component and strict mode.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a worker's share)
 
 from canny_edge_tpu_torch.kernels import hysteresis_packed as khp
 from canny_edge_tpu_torch.ops import packed as P

@@ -13,6 +13,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a worker's share)
 
 from canny_edge_tpu.golden.reference import gaussian_kernel as golden_kernel
 from canny_edge_tpu.io.imageio import synthetic_image

@@ -19,6 +19,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a worker's share)
 
 from canny_edge_tpu.io.imageio import synthetic_image
 from canny_edge_tpu_torch import CannyTorch

@@ -12,6 +12,7 @@ import zlib
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's threads: a worker's share)
 
 from canny_edge_tpu import golden
 from canny_edge_tpu.config import CannyConfig as JaxConfig
