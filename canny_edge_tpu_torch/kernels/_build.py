@@ -42,6 +42,8 @@ SIGNATURES = {
         "canny_frontend_max_window": [],
         "canny_frontend_smem_bytes": [_I],
         "canny_frontend_ring_geometry": [_I, _I, _I, _I, _P],
+        "canny_frontend_ring_spans": [_I, _I, _I, _I, _P,
+                                      ctypes.c_longlong],
         "canny_run_plan": [_P, _P, _P, _L],
     },
     "hysteresis_packed": {

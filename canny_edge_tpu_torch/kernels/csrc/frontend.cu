@@ -173,17 +173,19 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
 }
 
 // The back half of a TH x 64 tile whose first output pixel is (ty0, tx0)
-// of the output block: Sobel, magnitude and direction, NMS and the output,
-// from the floored blur `sm` (rows [row0-2, row0+TH+2) x columns [col0-4,
-// col0+68) of the image, XW floats a row) in shared memory; `mag` is shared
-// scratch of (TH + 2) x MAG_W int16.  A group of THREADS threads (`tid`
-// its thread) calls it after a barrier that publishes `sm`; the group's
-// barrier is __syncthreads (BAR 0) or named barrier BAR of THREADS threads.
+// of frame z's output block: Sobel, magnitude and direction, NMS and the
+// output, from the floored blur `sm` (rows [row0-2, row0+TH+2) x columns
+// [col0-4, col0+68) of the image, XW floats a row) in shared memory; `mag`
+// is shared scratch of (TH + 2) x MAG_W int16.  A group of THREADS threads
+// (`tid` its thread) calls it after a barrier that publishes `sm`; the
+// group's barrier is __syncthreads (BAR 0) or named barrier BAR of THREADS
+// threads.
 // In NMS a warp takes TH / 4 rows of one 32-column word.
 template <int TH = TILE_H, int BAR = 0>
 __device__ __forceinline__ void back_half(const Frame& f, const float* sm,
-                                          int16_t* mag, int ty0, int tx0,
-                                          int tid, int packed, int mn, int mx,
+                                          int16_t* mag, int z, int ty0,
+                                          int tx0, int tid, int packed,
+                                          int mn, int mx,
                                           int16_t* __restrict__ nm_out,
                                           uint32_t* __restrict__ weak,
                                           uint32_t* __restrict__ strong) {
@@ -275,8 +277,8 @@ __device__ __forceinline__ void back_half(const Frame& f, const float* sm,
                               | ((uint32_t)(MAG_W - 1) << 16)
                               | ((uint32_t)(MAG_W + 1) << 24);
     const size_t o = packed
-        ? ((size_t)blockIdx.z * f.oh + ty0 + y0) * wd + word
-        : ((size_t)blockIdx.z * f.oh + ty0 + y0) * f.ow + lc;
+        ? ((size_t)z * f.oh + ty0 + y0) * wd + word
+        : ((size_t)z * f.oh + ty0 + y0) * f.ow + lc;
     uint32_t* wp = weak + o;
     uint32_t* sp = strong + o;
     int16_t* np = nm_out + o;
@@ -457,7 +459,8 @@ frontend_kernel(Frame f, const float* __restrict__ taps, int packed, int mn,
   }
   __syncthreads();
 
-  back_half(f, sm, mag, ty0, tx0, tid, packed, mn, mx, nm_out, weak, strong);
+  back_half(f, sm, mag, blockIdx.z, ty0, tx0, tid, packed, mn, mx, nm_out,
+            weak, strong);
 }
 
 // the shared memory a block of this window needs
@@ -501,10 +504,10 @@ cudaError_t launch(const Frame& f, const float* taps, int packed, int mn,
 //
 // The tile path's 64x64 tile runs its x-pass over 68 + 2c rows for 64
 // outputs (at 263 taps, 330), and its shared memory grows with (68 + 2c)
-// rows of input and x-pass, one block an SM.  The ring path gives a block a
-// strip of 64 output columns (the tile's 72 x-pass columns) over a run of R
-// output rows, in steps of RTH = 32 rows, and splits its 16 warps in two
-// groups that work at once, handing rows over through a ring:
+// rows of input and x-pass, one block an SM.  The ring path streams a strip
+// of 64 output columns (the tile's 72 x-pass columns) down its output rows,
+// in steps of RTH = 32 rows, and splits a block's 16 warps in two groups
+// that work at once, handing rows over through a ring:
 //   x-pass warps (8)  fetch the next 32 input rows of the strip (72 + 2c
 //           texels each, zero off the image) in 16-byte loads into
 //           registers, run the x-pass of the current 32 rows out of a
@@ -519,27 +522,39 @@ cudaError_t launch(const Frame& f, const float* taps, int packed, int mn,
 //   y-pass warps (8)  take a step's blurred rows [ty0 - 2, ty0 + 34): 8
 //           rows of one of the first 64 columns a thread and one row of the
 //           last 8, loaded as the x-pass's are; the first 4 rows come from
-//           the step before (or, on the first step, from a prologue); then
-//           back_half on the 32 x 64 tile (the tile path's Sobel, NMS and
-//           output, at a tile height of 32, on the group's own barrier).
+//           the step before (or, on a segment's first step, from its
+//           prologue); then back_half on the 32 x 64 tile (the tile path's
+//           Sobel, NMS and output, at a tile height of 32, on the group's
+//           own barrier).
 // Two named barriers hand over: "rows written" (the x-pass warps arrive
 // after writing a step's rows, the y-pass warps wait before reading them)
 // and "rows released" (the y-pass warps arrive once a step's y-pass has
 // read the ring, the x-pass warps wait before overwriting its oldest 32
 // rows), so the x-pass of step k + 1 runs beside the y-pass and back half
-// of step k.  Every x-pass row of the strip is computed once a run: a run
-// costs its R rows plus the prologue's 4 + 2c rows of x-pass, which the
-// x-pass warps compute alone.  The taps and the divisors of the strip's
-// columns are built in shared memory once a block, the divisors of the
-// run's rows RDIV rows at a time (the y-pass warps refill them every RDIV /
-// RTH steps): a position whose window lies in the image takes the full
-// tap-order sum, summed once, and only the rows within c of the image's
-// top or bottom sum their own.  The grid is (strips, runs, B), its run
-// count chosen by the card's waves (ring_launch_of): the fewest modelled
-// waves times a block's cost, so that a batch that fills the card's
-// co-resident blocks takes long runs and few prologues, and a single frame
-// short runs that fill the card once.  The arithmetic is the tile path's:
-// taps ascending (__fmul_rn, __fadd_rn), __fdiv_rn, floorf on the y-pass.
+// of step k.
+//
+// A launch's work is one sequence of steps: frame by frame, strip by strip
+// within a frame, and down each strip (a column of the sequence).  A block
+// walks one contiguous span of it (Spans); the part of a span in one column
+// is a segment.  A segment starts as a column does: the x-pass warps
+// compute the strip's column divisors and a prologue of 4 + 2c x-pass rows
+// (those of the segment's first 4 blurred rows) alone, the y-pass warps the
+// divisors of its rows RDIV rows at a time (refilled every RDIV / RTH
+// steps), and every x-pass row after the prologue is computed once.  From
+// one segment to the next the hand-over goes on: the x-pass warps fetch the
+// next segment's first input rows during the last step, and compute its
+// prologue's first rows while the y-pass warps read that step, writing them
+// once "rows released" says it is read (the prologue takes ring slots the
+// step holds).  The taps and `full` are built once a block.  A position
+// whose window lies in the image takes the full tap-order sum, summed once;
+// only the rows and columns within c of the image's border sum their own.
+// The arithmetic is the tile path's: taps ascending (__fmul_rn, __fadd_rn),
+// __fdiv_rn, floorf on the y-pass.
+//
+// The spans (ring_launch_of): equal runs down each column, the run count
+// chosen by the card's waves; or, where it is modelled faster, as many
+// spans of near-equal length as the card holds blocks at once, which cross
+// strips and frames, so that no slot stands idle for a second wave.
 
 constexpr int RT = 512;                // ring path threads: 16 warps
 constexpr int RG = 256;                // of which x-pass, and y-pass
@@ -681,9 +696,77 @@ struct RingLoad {
   }
 };
 
+// The spans of a ring launch's blocks.  The launch's work is T = B strips
+// steps steps, in the order frame, strip, step (a column: `steps` steps of
+// RTH rows, the last rounded up).  With run > 0 the grid is (strips, runs,
+// B) and block (x, y, z) takes steps [y run, (y + 1) run) of column (z, x),
+// the last run fewer: equal runs, each within one column.  With run 0 the
+// grid is (blocks) and block i takes steps [i T / blocks, (i + 1) T /
+// blocks): spans of near-equal length that may cross strips and frames.
+// Indices over the sequence are 64-bit (65535 frames x strips x steps pass
+// 2^31).
+struct Spans {
+  int strips, steps, run, blocks;
+};
+
+// block (bx, by, bz)'s span [*begin, *end) of the sequence, on B frames
+__host__ __device__ inline void span_of(const Spans& sp, int B, int bx,
+                                        int by, int bz, long long* begin,
+                                        long long* end) {
+  if (sp.run > 0) {
+    const long long col = (long long)bz * sp.strips + bx;
+    const long long b = col * sp.steps + (long long)by * sp.run;
+    const long long e = (col + 1) * sp.steps;
+    *begin = b;
+    *end = b + sp.run < e ? b + sp.run : e;
+  } else {
+    // i T / blocks without the product i T: q = T / blocks, r = T % blocks
+    const long long total = (long long)B * sp.strips * sp.steps;
+    const long long q = total / sp.blocks, r = total % sp.blocks;
+    *begin = bx * q + bx * r / sp.blocks;
+    *end = (bx + 1) * q + (bx + 1) * r / sp.blocks;
+  }
+}
+
+// the segments of a span [b, e): the columns it meets
+__host__ __device__ inline int segments_of(const Spans& sp, long long b,
+                                           long long e) {
+  return (int)((e - 1) / sp.steps - b / sp.steps + 1);
+}
+
+// A warp group's walk over its block's span, a segment at a time: the
+// segment's frame z, its strip's first output column tx0, its first step
+// k0 and its steps, and the steps of the span after it.  A walk starts at
+// the span's first segment (walk_of) and goes on to the next column's
+// first steps (next): the next strip, or the next frame's first.
+struct Walk {
+  int z, tx0, k0, steps, rest;
+
+  __device__ void next(const Spans& sp) {
+    tx0 += TILE_W;
+    if (tx0 == sp.strips * TILE_W) {
+      tx0 = 0;
+      ++z;
+    }
+    k0 = 0;
+    steps = rest < sp.steps ? rest : sp.steps;
+    rest -= steps;
+  }
+};
+
+__device__ inline Walk walk_of(const Spans& sp, int B) {
+  long long b, e;
+  span_of(sp, B, blockIdx.x, blockIdx.y, blockIdx.z, &b, &e);
+  const long long col = b / sp.steps;
+  const int k0 = (int)(b - col * sp.steps);
+  const int steps = e - b < sp.steps - k0 ? (int)(e - b) : sp.steps - k0;
+  return Walk{(int)(col / sp.strips), (int)(col % sp.strips) * TILE_W, k0,
+              steps, (int)(e - b - steps)};
+}
+
 __global__ void __launch_bounds__(RT, 1)
 frontend_ring_kernel(Frame f, const float* __restrict__ taps, int window,
-                     int R, int packed, int mn, int mx, int vec_ok,
+                     Spans sp, int packed, int mn, int mx, int vec_ok,
                      int16_t* __restrict__ nm_out,
                      uint32_t* __restrict__ weak,
                      uint32_t* __restrict__ strong) {
@@ -702,35 +785,39 @@ frontend_ring_kernel(Frame f, const float* __restrict__ taps, int window,
   const bool xw = tid < RG;            // an x-pass warp, else a y-pass warp
   const int gt = xw ? tid : tid - RG;  // the thread in its group
   const int lane = gt & 31, warp = gt >> 5;
-  // the strip's first output column and the run's first output row, in the
-  // block and in the image; the run's steps
-  const int tx0 = blockIdx.x * TILE_W, rb0 = blockIdx.y * R;
-  const int col0 = f.col0 + tx0, rr0 = f.row0 + rb0;
-  const int steps = (min(R, f.oh - rb0) + RTH - 1) / RTH;
-  const uint8_t* fsrc = f.src + (size_t)blockIdx.z * f.sh * f.sw;
-  const bool vec = vec_ok && (reinterpret_cast<uintptr_t>(fsrc) & 3u) == 0;
-  // x-pass row j is image row rr0 - 2 - c + j; blurred row b, image row
-  // rr0 - 2 + b, takes x-pass rows [b, b + 2c].  Staging byte 0 is window
-  // column ws0, a multiple of 4; x-pass column x at tap t reads byte
-  // xoff + x + t.
-  const int wcx = tx0 - 4 - c + f.halo;
-  const int ws0 = wcx & ~3;
-  const int xoff = wcx - ws0;
   const int P = 4 + 2 * c;             // x-pass rows of blurred rows 0..3
+  // x-pass row j of a segment is image row rr0 - 2 - c + j, where rr0 is the
+  // image row of its first output row; blurred row b, image row rr0 - 2 +
+  // b, takes x-pass rows [b, b + 2c].  A strip's staging byte 0 is window
+  // column ws0 = (tx0 - 4 - c + halo) & ~3 and x-pass column x at tap t
+  // reads byte xoff + x + t; chunk m of a staging row covers window columns
+  // [cs0 + 16 m, + 16), cs0 = ws0 & ~15.  tx0 is a multiple of 64, so xoff,
+  // ws0 - cs0 and the chunks a row are those of every strip.
+  const int wc4 = 4 + c - f.halo;      // tx0 - ws0 - xoff
+  const int xoff = -wc4 & 3;
+  const int lead = -wc4 & 12;          // ws0 - cs0
+  const int nch = (lead + SW + 15) >> 4;         // chunks a staging row
 
-  // input rows [j0, j0 + n) of the strip, for staging rows 0..n-1: every
-  // x-pass thread fetches up to RB 16-byte chunks of the window rows into
-  // registers (chunk m covers window columns [cs0 + 16 m, + 16)) before the
-  // x-pass of the rows before them, so that the loads' latency hides under
-  // it, and stores them as 32-bit words after it.  A chunk is one 16-byte
-  // load where it lies in the window and the image and the rows start on 16
-  // bytes, else a word at a time (4 bytes, or bytes), zero off the image.
-  const bool vec16 = vec_ok && (reinterpret_cast<uintptr_t>(fsrc) & 15u) == 0
-                     && f.sw % 16 == 0;
-  const int cs0 = ws0 & ~15;
-  const int nch = (ws0 + SW - cs0 + 15) >> 4;    // chunks a staging row
-  auto word_at = [&](const uint8_t* src, int wc, int gc) {
-    if (vec && wc >= 0 && wc + 4 <= f.sw && gc >= 0 && gc + 4 <= W)
+  // where a segment's input rows come from (worked out once a segment):
+  // its frame's window, the image row of its x-pass row 0, the window column
+  // of chunk 0, and the loads its frame's alignment allows.  A chunk is one
+  // 16-byte load where it lies in the window and the image and the rows
+  // start on 16 bytes, else a word at a time (4 bytes, or bytes), zero off
+  // the image.
+  struct Src {
+    const uint8_t* p;
+    int r0, cs0;
+    bool vec, vec16;
+  };
+  auto src_of = [&](const Walk& w) {
+    const uint8_t* p = f.src + (size_t)w.z * f.sh * f.sw;
+    const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+    return Src{p, f.row0 + RTH * w.k0 - 2 - c, w.tx0 + (-wc4 & ~15),
+               vec_ok && (a & 3u) == 0,
+               vec_ok && (a & 15u) == 0 && f.sw % 16 == 0};
+  };
+  auto word_at = [&](const Src& s, const uint8_t* src, int wc, int gc) {
+    if (s.vec && wc >= 0 && wc + 4 <= f.sw && gc >= 0 && gc + 4 <= W)
       return *reinterpret_cast<const uint32_t*>(src + wc);
     uint32_t w = 0u;
 #pragma unroll
@@ -739,41 +826,47 @@ frontend_ring_kernel(Frame f, const float* __restrict__ taps, int window,
         w |= (uint32_t)src[wc + b] << (8 * b);
     return w;
   };
-  auto chunk_at = [&](int j0, int e) {     // chunk e % nch of row e / nch
+  // chunk e % nch of input row j0 + e / nch
+  auto chunk_at = [&](const Src& s, int j0, int e) {
     const int i = e / nch, m = e - i * nch;
-    const int gr = rr0 - 2 - c + j0 + i, wr = gr - f.row0 + f.halo;
+    const int gr = s.r0 + j0 + i, wr = gr - f.row0 + f.halo;
     if (gr < 0 || gr >= H || wr < 0 || wr >= f.sh)
       return make_uint4(0u, 0u, 0u, 0u);
-    const uint8_t* src = fsrc + (size_t)wr * f.sw;
-    const int wc = cs0 + 16 * m, gc = wc - f.halo + f.col0;
-    if (vec16 && wc >= 0 && wc + 16 <= f.sw && gc >= 0 && gc + 16 <= W)
+    const uint8_t* src = s.p + (size_t)wr * f.sw;
+    const int wc = s.cs0 + 16 * m, gc = wc - f.halo + f.col0;
+    if (s.vec16 && wc >= 0 && wc + 16 <= f.sw && gc >= 0 && gc + 16 <= W)
       return __ldg(reinterpret_cast<const uint4*>(src + wc));
-    return make_uint4(word_at(src, wc, gc), word_at(src, wc + 4, gc + 4),
-                      word_at(src, wc + 8, gc + 8),
-                      word_at(src, wc + 12, gc + 12));
+    return make_uint4(word_at(s, src, wc, gc), word_at(s, src, wc + 4, gc + 4),
+                      word_at(s, src, wc + 8, gc + 8),
+                      word_at(s, src, wc + 12, gc + 12));
   };
   auto put = [&](int e, uint4 v) {         // its words into staging
     const int i = e / nch, m = e - i * nch;
-    const int q0 = (cs0 + 16 * m - ws0) >> 2;
+    const int q0 = (16 * m - lead) >> 2;
     uint32_t* dst = reinterpret_cast<uint32_t*>(st + i * SW) + q0;
     const uint32_t wd[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int k = 0; k < 4; ++k)
       if (q0 + k >= 0 && q0 + k < SW / 4) dst[k] = wd[k];
   };
-  auto fetch = [&](int j0, int n, uint4 (&v)[RB]) {
+  // input rows [j0, j0 + n) for staging rows 0..n-1: every x-pass thread
+  // fetches up to RB chunks into registers before the x-pass of the rows
+  // before them, so that the loads' latency hides under it, and stores
+  // them as 32-bit words after it
+  auto fetch = [&](const Src& s, int j0, int n, uint4 (&v)[RB]) {
 #pragma unroll
     for (int b = 0; b < RB; ++b) {
       const int e = gt + b * RG;
-      v[b] = e < n * nch ? chunk_at(j0, e) : make_uint4(0u, 0u, 0u, 0u);
+      v[b] = e < n * nch ? chunk_at(s, j0, e) : make_uint4(0u, 0u, 0u, 0u);
     }
   };
-  auto store = [&](int j0, int n, const uint4 (&v)[RB]) {
+  auto store = [&](const Src& s, int j0, int n, const uint4 (&v)[RB]) {
 #pragma unroll
     for (int b = 0; b < RB; ++b)
       if (gt + b * RG < n * nch) put(gt + b * RG, v[b]);
     // chunks past what the registers hold, read now
-    for (int e = gt + RB * RG; e < n * nch; e += RG) put(e, chunk_at(j0, e));
+    for (int e = gt + RB * RG; e < n * nch; e += RG)
+      put(e, chunk_at(s, j0, e));
   };
 
   // an x-pass thread's 9 outputs of staging row `lane` (x-pass row j0 +
@@ -802,13 +895,13 @@ frontend_ring_kernel(Frame f, const float* __restrict__ taps, int window,
     }
   };
 
-  // ---- taps, the first input rows, the divisors ----
+  // ---- the taps, and the first segment's first input rows into
+  //      registers ----
   uint4 next[RB];
+  Walk sg = walk_of(sp, f.B);
   for (int t = tid; t < window; t += RT) k_s[t] = taps[t];
-  if (xw) {
-    fetch(0, min(RTH, P), next);
-    store(0, min(RTH, P), next);
-  }
+  Src rows = src_of(sg);
+  if (xw) fetch(rows, 0, min(RTH, P), next);
   __syncthreads();
   // tap-order f32 sums of the in-image weights, 1 off the image: where the
   // whole window lies in the image the sum is `full`, the sum of every tap;
@@ -823,90 +916,117 @@ frontend_ring_kernel(Frame f, const float* __restrict__ taps, int window,
       sum = __fadd_rn(sum, k_s[t]);
     return sum;
   };
-  // the strip's XW columns, then the run's blurred rows 0..3 and those of
-  // its first RDIV / RTH steps
-  for (int d = tid, nd = XW + 4 + min(steps * RTH, RDIV); d < nd; d += RT)
-    cnt_x[d] = d < XW ? divisor(col0 - 4 + d, W)
-                      : divisor(rr0 - 2 + d - XW, H);
-  __syncthreads();
 
   if (xw) {
-    // ---- x-pass warps: the prologue's rows [0, P), then a step's 32 ----
+    // ---- x-pass warps: a segment's prologue rows [0, P), then a step's
+    //      32 ----
     float acc[RXR];
-    for (int j0 = 0; j0 < P;) {
-      const int n = min(RTH, P - j0);
-      // the rows after these: the rest of the prologue, or step 0's
-      const int j1 = j0 + n, n1 = j1 < P ? min(RTH, P - j1) : RTH;
-      fetch(j1, n1, next);
-      xcompute(n, acc);
-      bar_sync(BAR_X, RG);             // every x-pass thread read staging
-      store(j1, n1, next);
-      xwrite(j0, n, acc);              // fresh slots: no y-pass reads them
-      bar_sync(BAR_X, RG);             // staging holds rows j1..
-      j0 = j1;
-    }
-    bar_arrive(BAR_FULL, RT);          // the prologue's rows are written
-    for (int k = 0; k < steps; ++k) {
-      const int j1 = P + RTH * (k + 1), n1 = k + 1 < steps ? RTH : 0;
-      fetch(j1, n1, next);
-      xcompute(RTH, acc);
-      bar_sync(BAR_X, RG);
-      store(j1, n1, next);
-      bar_sync(BAR_EMPTY, RT);         // the rows these overwrite are read
-      xwrite(P + RTH * k, RTH, acc);
-      bar_arrive(BAR_FULL, RT);        // step k's rows are written
-      bar_sync(BAR_X, RG);
+    store(rows, 0, min(RTH, P), next);
+    for (bool more = true; more;) {
+      more = sg.rest > 0;
+      // the strip's XW column divisors (the last quotients of the segment
+      // before were written before the group's last barrier)
+      for (int d = gt; d < XW; d += RG)
+        cnt_x[d] = divisor(f.col0 + sg.tx0 - 4 + d, W);
+      bar_sync(BAR_X, RG);             // staging holds rows 0..; divisors
+      for (int j0 = 0; j0 < P;) {
+        const int n = min(RTH, P - j0);
+        // the rows after these: the rest of the prologue, or step 0's
+        const int j1 = j0 + n, n1 = j1 < P ? min(RTH, P - j1) : RTH;
+        fetch(rows, j1, n1, next);
+        xcompute(n, acc);
+        bar_sync(BAR_X, RG);           // every x-pass thread read staging
+        store(rows, j1, n1, next);
+        // the segment before's last step holds every slot until it is read
+        // (before the first segment, the y-pass warps' first arrival)
+        if (j0 == 0) bar_sync(BAR_EMPTY, RT);
+        xwrite(j0, n, acc);
+        bar_sync(BAR_X, RG);           // staging holds rows j1..
+        j0 = j1;
+      }
+      bar_arrive(BAR_FULL, RT);        // the prologue's rows are written
+      for (int k = 0;; ++k) {
+        // the rows after step k's: step k + 1's, or after the last step the
+        // next segment's first (the walk goes on to it here), or none
+        const bool last = k + 1 == sg.steps;
+        if (last && more) {
+          sg.next(sp);
+          rows = src_of(sg);
+        }
+        const int j1 = last ? 0 : P + RTH * (k + 1);
+        const int n1 = !last ? RTH : more ? min(RTH, P) : 0;
+        fetch(rows, j1, n1, next);
+        xcompute(RTH, acc);
+        bar_sync(BAR_X, RG);
+        store(rows, j1, n1, next);
+        bar_sync(BAR_EMPTY, RT);       // the rows these overwrite are read
+        xwrite(P + RTH * k, RTH, acc);
+        bar_arrive(BAR_FULL, RT);      // step k's rows are written
+        bar_sync(BAR_X, RG);
+        if (last) break;
+      }
     }
   } else {
-    // ---- y-pass warps: blurred rows 0..3, then a step's 32 and the back
-    //      half on them ----
-    bar_sync(BAR_FULL, RT);
-    for (int i = gt; i < 4 * XW; i += RG) {      // 4 rows x 72 columns
-      const int x = i % XW, b = i / XW;
-      const float* col = ring + x;
-      float acc = 0.0f;
-      for (int t = 0; t < window; ++t)
-        acc = __fadd_rn(acc, __fmul_rn(col[(b + t) * RS], k_s[t]));
-      sm[b * XW + x] = floorf(__fdiv_rn(acc, cnt_y[b]));
-    }
-    bar_arrive(BAR_EMPTY, RT);         // x-pass rows 0..3 are read
+    // ---- y-pass warps: a segment's blurred rows 0..3, then a step's 32
+    //      and the back half on them ----
     // 8 rows (yq) of column yx < 64, and row yr of column yt >= 64
     const int yx = gt % TILE_W, yq = gt / TILE_W;
     const int yt = TILE_W + (gt & 7), yr = gt >> 3;
-    for (int k = 0; k < steps; ++k) {
-      // the divisor of blurred row b >= 4 lies at 4 + (b - 4) % RDIV: every
-      // RDIV / RTH steps the next steps' rows take the slots of the last
-      // ones' (read before the back half's barrier of step k - 1)
-      const int bd = 4 + (RTH * k) % RDIV;
-      if (k > 0 && bd == 4) {
-        for (int i = gt; i < min(RDIV, RTH * (steps - k)); i += RG)
-          cnt_y[4 + i] = divisor(rr0 + 2 + RTH * k + i, H);
-        bar_sync(BAR_Y, RG);
+    bar_arrive(BAR_EMPTY, RT);         // no segment before the first
+    for (;; sg.next(sp)) {
+      // blurred rows 0..3 and those of the first RDIV / RTH steps (the last
+      // step's were read before the back half's first barrier)
+      for (int d = gt, nd = 4 + min(sg.steps * RTH, RDIV); d < nd; d += RG)
+        cnt_y[d] = divisor(f.row0 + RTH * sg.k0 - 2 + d, H);
+      bar_sync(BAR_Y, RG);
+      bar_sync(BAR_FULL, RT);          // the prologue's rows are written
+      for (int i = gt; i < 4 * XW; i += RG) {    // 4 rows x 72 columns
+        const int x = i % XW, b = i / XW;
+        const float* col = ring + x;
+        float acc = 0.0f;
+        for (int t = 0; t < window; ++t)
+          acc = __fadd_rn(acc, __fmul_rn(col[(b + t) * RS], k_s[t]));
+        sm[b * XW + x] = floorf(__fdiv_rn(acc, cnt_y[b]));
       }
-      bar_sync(BAR_FULL, RT);          // step k's rows are written
-      // blurred rows b = 4 + 32k + ... take x-pass rows b .. b + 2c
-      const int b0 = 4 + RTH * k;
-      float acc[8];
+      bar_arrive(BAR_EMPTY, RT);       // x-pass rows 0..3 are read
+      for (int k = 0; k < sg.steps; ++k) {
+        // the divisor of blurred row b >= 4 lies at 4 + (b - 4) % RDIV:
+        // every RDIV / RTH steps the next steps' rows take the slots of the
+        // last ones' (read before the back half's barrier of step k - 1)
+        const int bd = 4 + (RTH * k) % RDIV;
+        if (k > 0 && bd == 4) {
+          for (int i = gt; i < min(RDIV, RTH * (sg.steps - k)); i += RG)
+            cnt_y[4 + i] = divisor(f.row0 + RTH * (sg.k0 + k) + 2 + i, H);
+          bar_sync(BAR_Y, RG);
+        }
+        bar_sync(BAR_FULL, RT);        // step k's rows are written
+        // blurred rows b = 4 + 32k + ... take x-pass rows b .. b + 2c
+        const int b0 = 4 + RTH * k;
+        float acc[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
-      sweep_taps(acc, k_s, window,
-                 RingLoad{ring + yx, (b0 + 8 * yq) % RING, RING});
-      float one[1] = {0.0f};
-      sweep_taps(one, k_s, window,
-                 RingLoad{ring + yt, (b0 + yr) % RING, RING});
-      if (k + 1 < steps) bar_arrive(BAR_EMPTY, RT);    // step k's rows read
+        for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
+        sweep_taps(acc, k_s, window,
+                   RingLoad{ring + yx, (b0 + 8 * yq) % RING, RING});
+        float one[1] = {0.0f};
+        sweep_taps(one, k_s, window,
+                   RingLoad{ring + yt, (b0 + yr) % RING, RING});
+        // step k's rows are read: the x-pass warps overwrite them with the
+        // next step's, or the next segment's prologue
+        if (k + 1 < sg.steps || sg.rest > 0) bar_arrive(BAR_EMPTY, RT);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        sm[(4 + 8 * yq + j) * XW + yx] =
-            floorf(__fdiv_rn(acc[j], cnt_y[bd + 8 * yq + j]));
-      sm[(4 + yr) * XW + yt] = floorf(__fdiv_rn(one[0], cnt_y[bd + yr]));
-      bar_sync(BAR_Y, RG);
-      back_half<RTH, BAR_Y>(f, sm, mag, rb0 + RTH * k, tx0, gt, packed, mn,
-                            mx, nm_out, weak, strong);
-      bar_sync(BAR_Y, RG);
-      // blurred rows 32..35 are the next step's 0..3 (the next step's
-      // "rows written" barrier orders the copy before its y-pass)
-      for (int i = gt; i < 4 * XW; i += RG) sm[i] = sm[RTH * XW + i];
+        for (int j = 0; j < 8; ++j)
+          sm[(4 + 8 * yq + j) * XW + yx] =
+              floorf(__fdiv_rn(acc[j], cnt_y[bd + 8 * yq + j]));
+        sm[(4 + yr) * XW + yt] = floorf(__fdiv_rn(one[0], cnt_y[bd + yr]));
+        bar_sync(BAR_Y, RG);
+        back_half<RTH, BAR_Y>(f, sm, mag, sg.z, RTH * (sg.k0 + k), sg.tx0,
+                              gt, packed, mn, mx, nm_out, weak, strong);
+        bar_sync(BAR_Y, RG);
+        // blurred rows 32..35 are the next step's 0..3 (the next step's
+        // "rows written" barrier orders the copy before its y-pass)
+        for (int i = gt; i < 4 * XW; i += RG) sm[i] = sm[RTH * XW + i];
+      }
+      if (sg.rest == 0) break;
     }
   }
 }
@@ -916,57 +1036,104 @@ int ring_smem_bytes(int window) { return ring_geo(window).bytes; }
 
 // The ring path's launch on B outputs of (oh, ow) at `window` taps on the
 // current device, worked out in one place for the launch and for
-// canny_frontend_ring_geometry.  A block x-passes the prologue's P = 4 + 2c
-// rows and RTH rows a step for its run's output rows; the grid is (strips,
-// runs, B).  Of the ways to cut oh into runs of R rows (a multiple of RTH),
-// the launch takes the one that minimises the grid's modelled time:
-// ceil(blocks / slots) waves of the card's co-resident blocks, each as long
-// as a block, w P + R step rows, where w (RING_W10 / 10) is a prologue row's
-// cost against a step row's (the x-pass warps run the prologue alone).  So
-// a batch that fills the card takes long runs and few prologues, a single
-// frame as many short runs as fill the card once.  blocks, xpass_rows and
-// out_rows are summed over the grid.
+// canny_frontend_ring_geometry / canny_frontend_ring_spans.  A segment
+// costs its prologue of P = 4 + 2c x-pass rows and RTH rows a step; a
+// prologue row costs w (RING_W10 / 10) of a step row (the x-pass warps run
+// it alone).  Two ways to cut the launch's columns (strips x frames) of
+// `steps` steps, and the one of least modelled time:
+//   runs   each column in equal runs of r steps, ceil(steps / r) of them,
+//          one block a run (grid (strips, runs, B)): ceil(blocks / slots)
+//          waves of the card's co-resident blocks, each as long as a block,
+//          w P + RTH r; r the cheapest (on equal costs the longer);
+//   spans  the whole sequence in min(slots, steps columns) spans of
+//          near-equal length, one block each (grid (blocks)), which cross
+//          columns: one wave, as long as its costliest block, w P (its
+//          segments) + RTH (its steps).
+// On equal costs the spans: fewer blocks for the same time.  So a batch
+// that overfills the card's slots spreads its steps over every slot, a
+// single frame keeps short runs that fill the card once.  segments,
+// xpass_rows and out_rows are summed over the grid; steps is the longest
+// block's.  Pricing the spans takes microseconds of host time, so a host
+// thread keeps its last RING_MEMO launches: a caller asks for the same
+// shapes call after call.
 struct RingLaunch {
-  int slots, strips, runs, R;
-  long long blocks, xpass_rows, out_rows;
+  int slots, strips, runs;
+  Spans sp;
+  long long segments, steps, blocks, xpass_rows, out_rows;
 };
 
 // w in tenths: an x-pass warp's cycles a prologue row against a step row's
 // (tools/k1_phases.py on the H100: 0.59-0.65 on 8 1080p frames at 121
 // taps, 0.60-0.61 on one, 0.66-0.68 on one at 263)
 constexpr long long RING_W10 = 6;
+constexpr int RING_MEMO = 8;
 
 cudaError_t ring_launch_of(int B, int oh, int ow, int window,
                            RingLaunch* g) {
+  struct Memo {
+    int dev, B, oh, ow, window;
+    RingLaunch g;
+  };
+  static thread_local Memo memo[RING_MEMO];
+  static thread_local int kept = 0, oldest = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  for (int i = 0; i < kept; ++i) {
+    const Memo& m = memo[i];
+    if (m.dev == dev && m.B == B && m.oh == oh && m.ow == ow
+        && m.window == window) {
+      *g = m.g;
+      return cudaSuccess;
+    }
+  }
   // the blocks the card holds at once (which also sets the kernel's shared
   // memory attribute to the device's limit)
   int slots = 0;
-  cudaError_t e = masks::coop_blocks((const void*)frontend_ring_kernel, RT,
-                                     ring_smem_bytes(window), 8, &slots);
+  e = masks::coop_blocks((const void*)frontend_ring_kernel, RT,
+                         ring_smem_bytes(window), 8, &slots);
   if (e != cudaSuccess) return e;
-  const int strips = (ow + TILE_W - 1) / TILE_W;
+  const int strips = (ow + TILE_W - 1) / TILE_W, steps = (oh + RTH - 1) / RTH;
   const long long columns = (long long)strips * B, P = 4 + 2 * (window / 2);
-  // n runs asked: runs of R rows, ceil(oh / R) <= n of them (at most 65535,
-  // the grid's y); on equal costs the fewer runs
-  int runs = 1, R = (oh + RTH - 1) / RTH * RTH;
+  const long long total = columns * steps;
+  // runs: n runs asked, runs of r steps, ceil(steps / r) <= n of them (at
+  // most 65535, the grid's y)
+  int r = steps;
   long long best = -1;
-  for (int n = 1, most = min((oh + RTH - 1) / RTH, 65535); n <= most; ++n) {
-    const int r = ((oh + n - 1) / n + RTH - 1) / RTH * RTH;
-    const int m = (oh + r - 1) / r;
+  for (int n = 1, most = min(steps, 65535); n <= most; ++n) {
+    const int rn = (steps + n - 1) / n, m = (steps + rn - 1) / rn;
     const long long cost =
-        (columns * m + slots - 1) / slots * (RING_W10 * P + 10LL * r);
+        (columns * m + slots - 1) / slots * (RING_W10 * P + 10LL * RTH * rn);
     if (best < 0 || cost < best) {
       best = cost;
-      runs = m;
-      R = r;
+      r = rn;
     }
   }
-  // every run but the last steps through R rows; the last through its rows
-  // rounded up to a step
-  const int last = (oh - (runs - 1) * R + RTH - 1) / RTH * RTH;
-  *g = RingLaunch{slots, strips, runs, R, columns * runs,
-                  columns * (runs * P + (long long)(runs - 1) * R + last),
-                  columns * oh};
+  // spans: one a slot, at most one a step; the costliest block's time
+  const int n = (int)(total < slots ? total : slots);
+  const Spans sp{strips, steps, 0, n};
+  long long worst = 0, segments = 0, longest = 0;
+  for (int i = 0; i < n; ++i) {
+    long long b, e;
+    span_of(sp, B, i, 0, 0, &b, &e);
+    const int k = segments_of(sp, b, e);
+    const long long cost = RING_W10 * P * k + 10LL * RTH * (e - b);
+    worst = cost > worst ? cost : worst;
+    segments += k;
+    longest = e - b > longest ? e - b : longest;
+  }
+  const int runs = (steps + r - 1) / r;
+  if (worst <= best)
+    *g = RingLaunch{slots, strips, 1, sp, segments, longest, n, 0, 0};
+  else
+    *g = RingLaunch{slots, strips, runs, Spans{strips, steps, r, 0},
+                    columns * runs, r, columns * runs, 0, 0};
+  // every segment x-passes its prologue and its steps' rows
+  g->xpass_rows = g->segments * P + RTH * total;
+  g->out_rows = columns * oh;
+  memo[oldest] = Memo{dev, B, oh, ow, window, *g};
+  kept = kept < RING_MEMO ? kept + 1 : kept;
+  oldest = (oldest + 1) % RING_MEMO;
   return cudaSuccess;
 }
 
@@ -977,9 +1144,10 @@ cudaError_t launch_ring(const Frame& f, const float* taps, int window,
   RingLaunch g;
   const cudaError_t e = ring_launch_of(f.B, f.oh, f.ow, window, &g);
   if (e != cudaSuccess) return e;
-  const dim3 grid(g.strips, g.runs, f.B);
+  const dim3 grid = g.sp.run > 0 ? dim3(g.strips, g.runs, f.B)
+                                 : dim3((unsigned)g.blocks, 1, 1);
   frontend_ring_kernel<<<grid, RT, ring_smem_bytes(window), stream>>>(
-      f, taps, window, g.R, packed, mn, mx, f.sw % 4 == 0, nm_out, weak,
+      f, taps, window, g.sp, packed, mn, mx, f.sw % 4 == 0, nm_out, weak,
       strong);
   return cudaGetLastError();
 }
@@ -1169,8 +1337,8 @@ frontend_tail_kernel(Frame f, const float* __restrict__ blur, int packed,
     sm[i] = by < ny && bx >= 0 && bx < nx ? fb[(size_t)by * nx + bx] : 0.0f;
   }
   __syncthreads();
-  back_half(f, sm, mag, ty0, tx0, (int)threadIdx.x, packed, mn, mx, nm_out,
-            weak, strong);
+  back_half(f, sm, mag, blockIdx.z, ty0, tx0, (int)threadIdx.x, packed, mn,
+            mx, nm_out, weak, strong);
 }
 
 int run_large(const Frame& f, const float* taps, int window, int packed,
@@ -1227,10 +1395,10 @@ int canny_frontend_max_window() {
 // The ring path's launch on B outputs of (oh, ow) at `window` taps (odd,
 // past TILE_MAX) on the current device, as canny_frontend and
 // canny_frontend_block launch it (ring_launch_of): geo[0..6] = the card's
-// co-resident blocks, strips, runs, rows a run, blocks, x-pass rows and
-// output rows, the last two summed over the blocks.  Returns
-// cudaErrorInvalidValue for another window or an empty batch, and past what
-// the ring's shared memory holds.
+// co-resident blocks, strips, segments, the steps of the longest block,
+// blocks, x-pass rows and output rows (segments and rows summed over the
+// blocks).  Returns cudaErrorInvalidValue for another window or an empty
+// batch, and past what the ring's shared memory holds.
 int canny_frontend_ring_geometry(int B, int oh, int ow, int window,
                                  long long* geo) {
   if (B < 1 || B > 65535 || oh < 1 || ow < 1 || window <= TILE_MAX
@@ -1239,9 +1407,33 @@ int canny_frontend_ring_geometry(int B, int oh, int ow, int window,
   RingLaunch g;
   const cudaError_t e = ring_launch_of(B, oh, ow, window, &g);
   if (e != cudaSuccess) return (int)e;
-  const long long v[7] = {g.slots, g.strips, g.runs, g.R, g.blocks,
+  const long long v[7] = {g.slots, g.strips, g.segments, g.steps, g.blocks,
                           g.xpass_rows, g.out_rows};
   for (int i = 0; i < 7; ++i) geo[i] = v[i];
+  return 0;
+}
+
+// The spans of that launch's blocks (Spans), as its blocks walk them:
+// span[2 i] and span[2 i + 1] are the first step of block i's span and the
+// step past its last, in the launch's sequence of steps (frame, strip, step
+// of ceil(oh / 32)), for the blocks in the grid's order (x, then y, then
+// z); at most n blocks are written.  Returns as
+// canny_frontend_ring_geometry.
+int canny_frontend_ring_spans(int B, int oh, int ow, int window,
+                              long long* span, long long n) {
+  if (B < 1 || B > 65535 || oh < 1 || ow < 1 || window <= TILE_MAX
+      || window % 2 == 0)
+    return (int)cudaErrorInvalidValue;
+  RingLaunch g;
+  const cudaError_t e = ring_launch_of(B, oh, ow, window, &g);
+  if (e != cudaSuccess) return (int)e;
+  const int gx = g.sp.run > 0 ? g.strips : (int)g.blocks;
+  const int gy = g.sp.run > 0 ? g.runs : 1, gz = g.sp.run > 0 ? B : 1;
+  long long i = 0;
+  for (int z = 0; z < gz; ++z)
+    for (int y = 0; y < gy; ++y)
+      for (int x = 0; x < gx && i < n; ++x, ++i)
+        span_of(g.sp, B, x, y, z, span + 2 * i, span + 2 * i + 1);
   return 0;
 }
 

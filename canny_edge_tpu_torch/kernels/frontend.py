@@ -7,7 +7,7 @@ the packed uint32 ``(weak, strong)`` masks ``(H, ceil(W/32))``
 given its window with the halo (:func:`frontend_block`, K1's block mode).
 Any odd window, on one of three paths (:func:`k1_path`): the tile path
 (every stage in one block's shared memory, unrolled per window) takes
-windows 3 to 103, the ring path (a column strip streamed through a ring of
+windows 3 to 103, the ring path (column strips streamed through a ring of
 x-pass rows) every wider window that its shared memory holds
 (:func:`max_window`, 613 on the H100; its launch's geometry:
 :func:`ring_geometry`), the scratch path every wider one (the blur through
@@ -41,10 +41,11 @@ block_launches = 0
 batch_launches = 0
 ring_launches = 0
 scratch_launches = 0
-# what the ring launches ran (:func:`ring_geometry`): blocks, x-pass rows
-# and output rows, summed over their blocks; x-pass rows over output rows is
-# the ring's recompute
+# what the ring launches ran (:func:`ring_geometry`): blocks, segments (the
+# prologues run), x-pass rows and output rows, summed over their blocks;
+# x-pass rows over output rows is the ring's recompute
 ring_blocks = 0
+ring_segments = 0
 ring_xpass_rows = 0
 ring_out_rows = 0
 
@@ -96,15 +97,18 @@ def max_window(device: torch.device) -> int:
 
 class RingGeometry(NamedTuple):
     """A ring-path launch (``csrc/frontend.cu:ring_launch_of``): the blocks
-    the card holds at once (``slots``), the 64-column ``strips`` of a frame,
-    the ``runs`` down a strip of ``rows`` output rows each (the last run's
-    fewer), the grid's ``blocks`` (strips x runs x frames), and, summed over
-    the blocks, the x-pass rows computed (a run's 32-row steps and its
-    prologue of ``4 + 2 (window // 2)`` rows) and the output rows."""
+    the card holds at once (``slots``), the 64-column ``strips`` of a
+    frame, the launch's ``segments`` (the parts of the blocks' spans of
+    32-row steps that lie in one strip of one frame, each with its own
+    prologue), the ``steps`` of its longest block, the grid's ``blocks``,
+    and, summed over the blocks, the x-pass rows computed (a segment's
+    32-row steps and its prologue of ``4 + 2 (window // 2)`` rows) and the
+    output rows.  Equal runs down each strip give one segment a block;
+    spans that cross strips and frames, one block a slot, more."""
     slots: int
     strips: int
-    runs: int
-    rows: int
+    segments: int
+    steps: int
     blocks: int
     xpass_rows: int
     out_rows: int
@@ -198,21 +202,23 @@ def _launch(src: torch.Tensor, taps: torch.Tensor, thresholds, geom, entry,
 
 def ring_counts(b: int, oh: int, ow: int, window: int, dev) -> tuple:
     """What a launch on ``b`` outputs of ``(oh, ow)`` at ``window`` taps on
-    ``dev`` adds to ``ring_launches``, ``ring_blocks``, ``ring_xpass_rows``
-    and ``ring_out_rows``: one launch and its geometry
+    ``dev`` adds to ``ring_launches``, ``ring_blocks``, ``ring_segments``,
+    ``ring_xpass_rows`` and ``ring_out_rows``: one launch and its geometry
     (:func:`ring_geometry`) on the ring path, zeros on the others."""
     if k1_path(window, max_window(dev)) != "ring":
-        return (0, 0, 0, 0)
+        return (0, 0, 0, 0, 0)
     g = ring_geometry(b, oh, ow, window, dev)
-    return (1, g.blocks, g.xpass_rows, g.out_rows)
+    return (1, g.blocks, g.segments, g.xpass_rows, g.out_rows)
 
 
 def count_ring(counts: tuple) -> None:
     """Add :func:`ring_counts`'s ``counts`` to the ring counters."""
-    global ring_launches, ring_blocks, ring_xpass_rows, ring_out_rows
-    n, blocks, xpass_rows, out_rows = counts
+    global ring_launches, ring_blocks, ring_segments, ring_xpass_rows, \
+        ring_out_rows
+    n, blocks, segments, xpass_rows, out_rows = counts
     ring_launches += n
     ring_blocks += blocks
+    ring_segments += segments
     ring_xpass_rows += xpass_rows
     ring_out_rows += out_rows
 

@@ -30,11 +30,12 @@ tensor of at most :data:`.frontend.MAX_BATCH` frames, with taps that take
 K1's tile or ring path (3 to :func:`.frontend.max_window` taps); every
 other request keeps the wrappers' path.  The wrappers' counters (K1's
 ``launches``, ``batch_launches``, ``ring_launches`` and the ring's
-geometry, ``ring_blocks``, ``ring_xpass_rows``, ``ring_out_rows``, which a
-plan works out once, at its build; K2's ``launches``, ``batch_launches``)
-and :func:`.hysteresis_packed.flood_steps` count a plan's launches as
-theirs; :data:`plan_builds` and :data:`plan_hits` count
-its lookups, so ``plan_hits / (plan_hits + plan_builds)`` is the hit share.
+geometry, ``ring_blocks``, ``ring_segments``, ``ring_xpass_rows``,
+``ring_out_rows``, which a plan works out once, at its build; K2's
+``launches``, ``batch_launches``) and
+:func:`.hysteresis_packed.flood_steps` count a plan's launches as theirs;
+:data:`plan_builds` and :data:`plan_hits` count its lookups, so
+``plan_hits / (plan_hits + plan_builds)`` is the hit share.
 """
 
 from __future__ import annotations

@@ -267,13 +267,14 @@ def test_card_k1_ring_path_equals_plain(cuda_device, win):
 
     def ring():
         return np.array([kfe.ring_launches, kfe.ring_blocks,
-                         kfe.ring_xpass_rows, kfe.ring_out_rows])
+                         kfe.ring_segments, kfe.ring_xpass_rows,
+                         kfe.ring_out_rows])
 
     def geometry(b, oh, ow):
         if path != "ring":
             return 0
         g = kfe.ring_geometry(b, oh, ow, win, cuda_device)
-        return np.array([1, g.blocks, g.xpass_rows, g.out_rows])
+        return np.array([1, g.blocks, g.segments, g.xpass_rows, g.out_rows])
 
     before, counted = ring(), 0
     for h, w in ((257, 333), (1, 1000), (40, 1)):
@@ -310,34 +311,38 @@ def test_card_k1_ring_path_equals_plain(cuda_device, win):
     assert (moved == counted).all()
 
 
-# (frames, rows, columns, the runs and rows a run on the H100's 132
-# co-resident blocks): the wide cell's batch and a pair of 4K frames, each
-# one run longer than the 512 rows whose divisors a block holds at once
-LONG_RUNS = [(8, 1080, 1920, (1, 1088)), (2, 2160, 3840, (1, 2176))]
+# (frames, rows, columns, the blocks, segments and longest block's steps on
+# the H100's 132 co-resident blocks): the wide cell's batch and a pair of
+# 4K frames, each in 132 spans across strips and frames, with segments
+# longer than the 512 rows whose divisors a block holds at once
+LONG_RUNS = [(8, 1080, 1920, (132, 360, 62)), (2, 2160, 3840, (132, 240, 62))]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w,want", LONG_RUNS)
 def test_card_k1_ring_long_runs_equal_plain(cuda_device, b, h, w, want):
-    """At 121 taps (sigma 20) a batch that fills the card takes one run a
-    strip: NMS map and masks equal to the plain version frame by frame,
-    and the launch in the ring counters with its geometry."""
+    """At 121 taps (sigma 20) a batch that overfills the card takes one
+    span a co-resident block, across strips and frames: NMS map and masks
+    equal to the plain version frame by frame, and the launch in the ring
+    counters with its geometry."""
     from bench_torch import make_image
 
     kern = gaussian_kernel(20.0)
     assert len(kern) == 121
     g = kfe.ring_geometry(b, h, w, 121, cuda_device)
-    assert (g.slots, g.runs, g.rows) == (132, *want)
+    assert (g.slots, g.blocks, g.segments, g.steps) == (132, *want)
     taps = torch.from_numpy(kern).to(cuda_device)
     imgs = torch.from_numpy(np.stack([make_image(h, w, seed=s)
                                       for s in range(b)])).to(cuda_device)
     before = np.array([kfe.ring_launches, kfe.ring_blocks,
-                       kfe.ring_xpass_rows, kfe.ring_out_rows])
+                       kfe.ring_segments, kfe.ring_xpass_rows,
+                       kfe.ring_out_rows])
     nm = kfe.frontend(imgs, taps)
     weak, strong = kfe.frontend(imgs, taps, (4, 12))
     moved = np.array([kfe.ring_launches, kfe.ring_blocks,
-                      kfe.ring_xpass_rows, kfe.ring_out_rows]) - before
-    assert (moved == 2 * np.array([1, g.blocks, g.xpass_rows,
+                      kfe.ring_segments, kfe.ring_xpass_rows,
+                      kfe.ring_out_rows]) - before
+    assert (moved == 2 * np.array([1, g.blocks, g.segments, g.xpass_rows,
                                    g.out_rows])).all()
     for i in range(b):
         assert torch.equal(nm[i].to(torch.int32),

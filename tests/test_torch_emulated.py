@@ -7,13 +7,16 @@ among them, the host's IEEE float32 with no contraction) and holds K1's
 tile, ring and scratch paths, in frame, batch and block mode, NMS map and
 packed masks, equal to the plain front end (``ops/window.py``) at small
 shapes; the emulated card's SM count makes a strip several runs (several
-blocks down a column), so runs, steps, the ring's wrap and its mirror rows
-are all crossed.  Its answer for the largest window of the tile and ring
-paths is the largest whose shared memory fits, at two limits, and the ring
-path's launch geometry (``canny_frontend_ring_geometry``) is the grid it
-launches, its runs chosen by the card's waves (one run a strip for the
-wide cell's batch, runs past the 512 rows whose divisors a block holds at
-once).  The launch plan's entry (``canny_run_plan``) runs K1 into the
+blocks down a column) or one block's span several strips and frames, so
+runs, spans, steps, the ring's wrap and its mirror rows are all crossed.
+Its answer for the largest window of the tile and ring paths is the
+largest whose shared memory fits, at two limits, and the ring path's
+launch geometry (``canny_frontend_ring_geometry``) is the grid it
+launches, whose blocks' spans (``canny_frontend_ring_spans``) cover the
+launch's steps once each: equal runs chosen by the card's waves, or spans
+across strips and frames, one a co-resident block, where the launch rule
+prices them lower (the wide cell's batch: 132 spans of at most 62 steps;
+runs past the 512 rows whose divisors a block holds at once).  The launch plan's entry (``canny_run_plan``) runs K1 into the
 plan's masks, then K2's entry, here a stand-in that records its arguments
 or runs the plain flood.  What only the card shows (that nvcc builds the
 source, its speed) is in the ``cuda``-marked tests.  Tolerance: 0
@@ -101,15 +104,47 @@ def _ring_geometry(lib, b, oh, ow, window):
     return kfe.RingGeometry(*geo) if err == 0 else err
 
 
-def _launched_is_the_geometry(lib, b, oh, ow, window):
-    """The grid of the last launch is the ring geometry's (strips, runs,
-    frames), its runs of R rows covering the frame."""
+def _spans(lib, b, oh, ow, window):
+    """The C entry's geometry, and its blocks' spans of the launch's steps
+    (a ``(blocks, 2)`` array of first step and the step past the last)."""
     g = _ring_geometry(lib, b, oh, ow, window)
-    grid = tuple((ctypes.c_uint * 3).in_dll(lib, "emu_grid"))
-    assert grid == (g.strips, g.runs, b)
-    assert g.rows % 32 == 0 and (g.runs - 1) * g.rows < oh <= g.runs * g.rows
-    assert g.blocks == g.strips * g.runs * b
+    span = (ctypes.c_longlong * (2 * g.blocks))()
+    assert lib.canny_frontend_ring_spans(b, oh, ow, window, span,
+                                         g.blocks) == 0
+    return g, np.array(span, dtype=np.int64).reshape(-1, 2)
+
+
+def _segments(spans, steps):
+    """The segments of each span: the columns of ``steps`` steps it
+    meets."""
+    return (spans[:, 1] - 1) // steps - spans[:, 0] // steps + 1
+
+
+def _covers(g, spans, b, oh, ow, window):
+    """The spans cover each (frame, strip, step) of the launch once, and
+    the geometry's segments, longest block and rows are theirs."""
+    steps = cdiv(oh, 32)
+    total = g.strips * b * steps
+    assert g.strips == cdiv(ow, 64) and g.blocks == len(spans)
+    first, past = np.sort(spans[:, 0]), np.sort(spans[:, 1])
+    assert (past > first).all() and first[0] == 0 and past[-1] == total
+    assert (first[1:] == past[:-1]).all()
+    assert g.segments == _segments(spans, steps).sum()
+    assert g.steps == (spans[:, 1] - spans[:, 0]).max()
+    assert g.xpass_rows == g.segments * (4 + window // 2 * 2) + 32 * total
     assert g.out_rows == g.strips * b * oh
+
+
+def _launched_is_the_geometry(lib, b, oh, ow, window):
+    """The grid of the last launch holds the ring geometry's blocks, as
+    (strips, runs, frames) for equal runs, each one segment, or as (blocks)
+    for spans across strips and frames; the spans cover the launch."""
+    g, spans = _spans(lib, b, oh, ow, window)
+    grid = tuple((ctypes.c_uint * 3).in_dll(lib, "emu_grid"))
+    if grid != (g.blocks, 1, 1):
+        assert grid[0] == g.strips and grid[2] == b
+        assert grid[0] * grid[1] * grid[2] == g.blocks == g.segments
+    _covers(g, spans, b, oh, ow, window)
 
 
 def _same(got, want):
@@ -203,15 +238,20 @@ def test_emulated_block_equals_plain(k1, row0, col0, hl, wl):
 
 def test_emulated_ring_geometry_of_the_wide_cell(cards, monkeypatch):
     """A batch of 8 1080p frames at 121 taps on the H100's 132 co-resident
-    blocks: 30 strips, 1 run of 1088 rows, 240 blocks in 2 waves, each
-    x-passing its 1088 rows and 124 rows of prologue (1212 rows a strip
-    for 1080 out: a recompute of 1.12); no geometry off the ring path, for
-    an empty batch or past the ring's shared memory.  The wrapper
+    blocks: 30 strips of 34 steps, 240 columns, 8160 steps in 132 spans of
+    61-62 steps, one wave, each of 2-3 segments (360 in all: 120 spans start
+    inside a strip), a segment x-passing its steps' rows and 124 rows of
+    prologue (a recompute of 1.18); no geometry off the ring path, for an
+    empty batch or past the ring's shared memory.  The wrapper
     (``kernels/frontend.py:ring_geometry``) reads the same entry."""
     k1 = cards(132)
-    got = _ring_geometry(k1, 8, 1080, 1920, 121)
-    want = kfe.RingGeometry(132, 30, 1, 1088, 240, 240 * 1212, 240 * 1080)
+    got, spans = _spans(k1, 8, 1080, 1920, 121)
+    want = kfe.RingGeometry(132, 30, 360, 62, 132, 360 * 124 + 32 * 8160,
+                            240 * 1080)
     assert got == want
+    _covers(got, spans, 8, 1080, 1920, 121)
+    assert set(spans[:, 1] - spans[:, 0]) == {61, 62}
+    assert set(_segments(spans, 34)) == {2, 3}
     for bad in ((8, 1080, 1920, 103), (8, 1080, 1920, 120),
                 (0, 1080, 1920, 121), (8, 0, 1920, 121),
                 (8, 1080, 1920, k1.canny_frontend_max_window() + 2)):
@@ -240,6 +280,27 @@ def _modelled(slots, b, oh, ow, window, runs, rows):
                                   + 10 * rows)
 
 
+def _runs_rule(slots, b, oh, ow, window):
+    """The runs and rows that the equal-runs rule chooses: the run count of
+    least modelled time (``_modelled``), on equal costs the fewer runs."""
+    steps, best = cdiv(oh, 32), None
+    for n in range(1, min(steps, 65535) + 1):
+        r = cdiv(steps, n)
+        cost = _modelled(slots, b, oh, ow, window, cdiv(steps, r), 32 * r)
+        if best is None or cost < best[0]:
+            best = (cost, cdiv(steps, r), 32 * r)
+    return best[1:]
+
+
+def _spans_modelled(slots, window, spans, steps):
+    """The launch rule's cost of blocks walking ``spans``: waves of the
+    card's co-resident blocks times the costliest block's prologues (one a
+    segment) and steps, in tenths of a step row."""
+    cost = (RING_W10 * (4 + window // 2 * 2) * _segments(spans, steps)
+            + 10 * 32 * (spans[:, 1] - spans[:, 0]))
+    return cdiv(len(spans), slots) * int(cost.max())
+
+
 def _old_rule(slots, b, oh, ow):
     """The runs and rows that the rule before the wave model chose: as many
     runs as filled the co-resident blocks once, at most 512 rows a run."""
@@ -248,10 +309,13 @@ def _old_rule(slots, b, oh, ow):
     return cdiv(oh, rows), rows
 
 
-# (frames, rows, columns, window, the runs and rows wanted or None): a
-# single 1080p frame keeps 4 runs of 288 rows, a 4K frame takes 2 of 1088
-# (5 of 448 before); then a grid of batches, shapes and ring windows
-RULE = [(1, 1080, 1920, 121, (4, 288)), (1, 2160, 3840, 121, (2, 1088))] + [
+# (frames, rows, columns, window, the blocks, segments and longest block's
+# steps wanted, or None): a single 1080p frame keeps 4 runs of 288 rows
+# (120 blocks of 9 steps), a 4K frame takes 132 spans of 30-31 steps
+# across its 60 strips (2 runs of 1088 rows before, 5 of 448 before
+# that); then a grid of batches, shapes and ring windows
+RULE = [(1, 1080, 1920, 121, (120, 120, 9)),
+        (1, 2160, 3840, 121, (132, 180, 31))] + [
     (b, oh, ow, win, None) for win in (105, 121, 263, 613) for b in (1, 8)
     for oh, ow in ((1, 1), (37, 1000), (1080, 1920), (2160, 3840),
                    (100000, 64))]
@@ -259,32 +323,37 @@ RULE = [(1, 1080, 1920, 121, (4, 288)), (1, 2160, 3840, 121, (2, 1088))] + [
 
 @pytest.mark.parametrize("b,oh,ow,win,want", RULE)
 def test_emulated_ring_runs_by_the_cards_waves(cards, b, oh, ow, win, want):
-    """On the H100's 132 co-resident blocks, the ring path's runs are the
-    rule's: runs of a multiple of 32 rows that cover the frame, within
-    CUDA's grid limits, and a modelled time never above the old rule's;
-    the x-pass rows are each run's prologue and steps."""
+    """On the H100's 132 co-resident blocks, the ring path's blocks are the
+    rule's: spans that cover each (frame, strip, step) once, within CUDA's
+    grid limits (equal runs, or one span a co-resident block), and a
+    modelled time never above the equal-runs rule's or the old rule's; the
+    x-pass rows are each segment's prologue and steps."""
     k1 = cards(132)
-    g = _ring_geometry(k1, b, oh, ow, win)
-    assert g.slots == 132 and g.strips == cdiv(ow, 64)
+    g, spans = _spans(k1, b, oh, ow, win)
+    assert g.slots == 132
     if want is not None:
-        assert (g.runs, g.rows) == want
-    assert g.rows % 32 == 0 and (g.runs - 1) * g.rows < oh <= g.runs * g.rows
-    assert g.strips < 2 ** 31 and g.runs <= 65535 and b <= 65535
-    assert g.blocks == g.strips * g.runs * b
-    last = cdiv(oh - (g.runs - 1) * g.rows, 32) * 32
-    assert g.xpass_rows == g.strips * b * (
-        g.runs * (4 + win // 2 * 2) + (g.runs - 1) * g.rows + last)
-    assert g.out_rows == g.strips * b * oh
-    assert _modelled(132, b, oh, ow, win, g.runs, g.rows) <= _modelled(
-        132, b, oh, ow, win, *_old_rule(132, b, oh, ow))
+        assert (g.blocks, g.segments, g.steps) == want
+    _covers(g, spans, b, oh, ow, win)
+    steps = cdiv(oh, 32)
+    if g.segments == g.blocks:           # equal runs: the grid's y <= 65535
+        assert (_segments(spans, steps) == 1).all()
+        assert cdiv(steps, g.steps) <= 65535
+    else:                                # spans: one a slot, at most
+        assert g.blocks <= 132
+    assert g.strips < 2 ** 31 and b <= 65535
+    got = _spans_modelled(132, win, spans, steps)
+    assert got <= _modelled(132, b, oh, ow, win,
+                            *_runs_rule(132, b, oh, ow, win))
+    assert got <= _modelled(132, b, oh, ow, win,
+                            *_old_rule(132, b, oh, ow))
 
 
 def test_emulated_long_run_equals_plain(cards):
-    """One run longer than the 512 rows whose divisors a block holds at
-    once (a 1100 x 64 frame at 105 taps on one co-resident block: 1 run of
-    1120 rows, 35 steps), so the y-pass warps refill the row divisors twice
-    and the last refill reaches the image's bottom border: equal to the
-    plain front end."""
+    """One segment longer than the 512 rows whose divisors a block holds at
+    once (a 1100 x 64 frame at 105 taps on one co-resident block: one
+    block, one segment of 35 steps, 1120 rows), so the y-pass warps refill
+    the row divisors twice and the last refill reaches the image's bottom
+    border: equal to the plain front end."""
     k1 = cards(1)
     kern = gaussian_kernel((105 // 2 - 0.5) / 3)
     assert len(kern) == 105
@@ -300,7 +369,43 @@ def test_emulated_long_run_equals_plain(cards):
         want = (ref,) if thr is None else window.frontend_nm(img, kern, thr)
         assert all(_same(g, w) for g, w in zip(got, want))
     _launched_is_the_geometry(k1, 1, *hw, 105)
-    assert _ring_geometry(k1, 1, *hw, 105)[1:4] == (1, 1, 1120)
+    assert _ring_geometry(k1, 1, *hw, 105)[1:5] == (1, 1, 35, 1)
+
+
+# (window, frames, frame, emulated SMs, the blocks and segments wanted): on
+# one co-resident block one span walks every strip of every frame; on 3, a
+# batch of 2 frames of 2 strips takes 3 spans, two of which start inside a
+# strip
+SPANS = [(win, b, hw, sms, want) for win in (105, 121)
+         for b, hw, sms, want in ((3, (45, 100), 1, (1, 6)),
+                                  (2, (300, 70), 3, (3, 6)))]
+
+
+@pytest.mark.parametrize("win,b,hw,sms,want", SPANS)
+def test_emulated_spans_across_strips_and_frames_equal_plain(
+        cards, win, b, hw, sms, want):
+    """Blocks whose spans cross strips and frames, with segments that
+    start inside a strip: NMS map and masks of every frame equal to the
+    plain front end, the grid one block a span."""
+    k1 = cards(sms)
+    kern = gaussian_kernel((win // 2 - 0.5) / 3)
+    assert len(kern) == win
+    imgs = torch.stack([_frame(*hw, seed=win + s) for s in range(b)])
+    taps = torch.from_numpy(kern)
+    g, spans = _spans(k1, b, *hw, win)
+    assert (g.blocks, g.segments) == want
+    starts = spans[:, 0] % cdiv(hw[0], 32)
+    assert (starts > 0).sum() == (2 if sms > 1 else 0)
+    for thr in (None, (MN, MX)):
+        got, out = _outputs((b,), *hw, thr)
+        assert k1.canny_frontend(imgs.data_ptr(), b, *hw, taps.data_ptr(),
+                                 win, *out, None) == 0
+        assert tuple((ctypes.c_uint * 3).in_dll(k1, "emu_grid")) == \
+            (g.blocks, 1, 1)
+        for i in range(b):
+            want_i = (window.frontend_nm(imgs[i], kern),) if thr is None \
+                else window.frontend_nm(imgs[i], kern, thr)
+            assert all(_same(a[i], w) for a, w in zip(got, want_i)), i
 
 
 def test_emulated_scratch_path_past_the_ring(k1):

@@ -86,13 +86,13 @@ GEOMETRY_CALLS = []
 def _ring_geometry(b, oh, ow, window, device):
     """A stand-in for the library's ring geometry: numbers of its shape."""
     GEOMETRY_CALLS.append((b, oh, ow, window))
-    return kfe.RingGeometry(132, ow, 1, oh, b * ow, b * ow * (oh + window),
-                            b * ow * oh)
+    return kfe.RingGeometry(132, ow, 2 * b * ow, oh, b * ow,
+                            b * ow * (oh + window), b * ow * oh)
 
 
 def _ring():
-    return (kfe.ring_launches, kfe.ring_blocks, kfe.ring_xpass_rows,
-            kfe.ring_out_rows)
+    return (kfe.ring_launches, kfe.ring_blocks, kfe.ring_segments,
+            kfe.ring_xpass_rows, kfe.ring_out_rows)
 
 
 @pytest.fixture
@@ -176,8 +176,8 @@ def test_ring_counters_advance_by_a_plans_geometry(stand_in):
     one on a tile plan adds nothing."""
     batch = torch.zeros((3, 24, 40), dtype=torch.uint8)
     GEOMETRY_CALLS.clear()
-    for window, per in ((121, (1, 120, 120 * 145, 120 * 24)),
-                        (11, (0, 0, 0, 0))):
+    for window, per in ((121, (1, 120, 240, 120 * 145, 120 * 24)),
+                        (11, (0, 0, 0, 0, 0))):
         taps = torch.from_numpy(_kern(window))
         before = _ring()
         for _ in range(3):
@@ -247,7 +247,8 @@ def test_card_plan_equals_the_wrappers_and_the_plain_version(cuda_device,
     ring path (121): one plan lookup and one launch of K1 and of K2 a
     request (on the ring path with its geometry in the ring counters), the
     edges those of the wrappers and of the plain version; at 121 taps a
-    batch of 8 1080p frames adds the ring geometry of one run a strip."""
+    batch of 8 1080p frames adds the ring geometry of 132 spans across
+    strips and frames."""
     kern = _kern(window)
     frames = torch.from_numpy(np.stack([synthetic_image(72, 100, seed=s)
                                         for s in range(3)]))
@@ -267,15 +268,16 @@ def test_card_plan_equals_the_wrappers_and_the_plain_version(cuda_device,
             assert sum(_moved(before)[5:]) == 1
             g = kfe.ring_geometry(1 if one else 3, 72, 100, 121, cuda_device)
             assert tuple(a - b for a, b in zip(_ring(), ring_before)) == \
-                ((1, g.blocks, g.xpass_rows, g.out_rows) if ring else
-                 (0, 0, 0, 0))
+                ((1, g.blocks, g.segments, g.xpass_rows, g.out_rows) if ring
+                 else (0, 0, 0, 0, 0))
             want = _wrappers(x, card.taps, mode == "strict-reference",
                              "packed" in name)
             assert torch.equal(got, want), (name, mode)
             assert torch.equal(got.cpu(), getattr(cpu, name)(host, MN, MX))
     if window == 121:
         # the wide cell's shape: a plan's counters are the launch rule's
-        # one run a strip on the H100's 132 co-resident blocks
+        # 132 spans of at most 62 steps (360 segments) on the H100's 132
+        # co-resident blocks
         card = CannyTorch.from_numpy_params(kern)
         wide = torch.from_numpy(np.stack([
             synthetic_image(1080, 1920, seed=s) for s in range(8)])).to(
@@ -283,9 +285,9 @@ def test_card_plan_equals_the_wrappers_and_the_plain_version(cuda_device,
         ring_before = _ring()
         got = card.batch(wide, MN, MX)
         assert tuple(a - b for a, b in zip(_ring(), ring_before)) == \
-            (1, 240, 240 * 1212, 240 * 1080)
-        assert kfe.ring_geometry(8, 1080, 1920, 121, cuda_device)[:4] == \
-            (132, 30, 1, 1088)
+            (1, 132, 360, 360 * 124 + 32 * 8160, 240 * 1080)
+        assert kfe.ring_geometry(8, 1080, 1920, 121, cuda_device)[:5] == \
+            (132, 30, 360, 62, 132)
         assert torch.equal(got, _wrappers(wide, card.taps, False, False))
 
 

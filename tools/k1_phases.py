@@ -7,25 +7,30 @@ The card has no profiler that looks inside a kernel, so this tool builds a
 copy of ``canny_edge_tpu_torch/kernels/csrc/frontend.cu`` whose ring kernel
 (``frontend_ring_kernel``) reads ``clock64`` after each of its phases and
 adds the cycles since the last reading to that phase's total, over all of a
-block's steps.  The block's two warp groups run different phases at once:
-an x-pass warp (thread 0) the set-up, the prologue's x-pass rows, then in
-each 32-row step fetching the next input rows into registers, the x-pass,
-the group's barrier, storing the fetched rows, the wait for the y-pass to
+block's segments and steps.  The block's two warp groups run different
+phases at once: an x-pass warp (thread 0) the set-up, each segment's
+prologue (the strip's divisors, the prologue's x-pass rows and, after the
+first segment, the wait for the y-pass to release the ring), then in each
+32-row step fetching the next input rows into registers, the x-pass, the
+group's barrier, storing the fetched rows, the wait for the y-pass to
 release the ring rows it overwrites, writing them, and the barrier; a
-y-pass warp (thread 256) the set-up, the wait for the prologue's rows, its
-4 blurred rows, then in each step the wait for the step's rows, the
-y-pass, the group's barrier, the back half and the barrier with the copy
-of 4 blurred rows.  Both threads are of the block of the second strip and
-second run (the first run where the strip has one).  A wait or a barrier
-is what a warp waits for the others.  Runs the copy in threshold mode on a
-batch of ``B`` 1080p frames (``tools/k1_sweep.py``'s) and prints the
-launch's runs and rows, cycles per phase, the prologue's share of the
-x-pass warp's cycles, a prologue row's cycles against a step row's (the
-weight ``w`` of ``csrc/frontend.cu:ring_launch_of``), the kernel's device
-time (CUDA events, median of 5 calls) and the card's name and power limit.
-``--tree`` stamps another tree's source (a parent's, to compare).  The
-copy goes to the package's build directory; the package's own library is
-not touched.  Needs the CUDA toolkit and a GPU.
+y-pass warp (thread 256) the set-up, each segment's row divisors and the
+wait for its prologue's rows, its 4 blurred rows, then in each step the
+wait for the step's rows, the y-pass, the group's barrier, the back half
+and the barrier with the copy of 4 blurred rows.  Both threads are of
+block (1, 1, 0) of a grid of equal runs, block 1 of a grid of spans
+across strips and frames (a block of several segments where the launch
+has them).  A wait or a barrier is what a warp waits for the others.  Runs
+the copy in threshold mode on a batch of ``B`` 1080p frames
+(``tools/k1_sweep.py``'s) and prints the launch's blocks, segments and
+longest block, the stamped block's segments and steps, cycles per phase,
+the prologue's share of the x-pass warp's cycles, a prologue row's cycles
+against a step row's (the weight ``w`` of
+``csrc/frontend.cu:ring_launch_of``), the kernel's device time (CUDA
+events, median of 5 calls) and the card's name and power limit.
+``--tree`` stamps another tree's source of the same kernel.  The copy goes
+to the package's build directory; the package's own library is not
+touched.  Needs the CUDA toolkit and a GPU.
 """
 
 from __future__ import annotations
@@ -58,51 +63,55 @@ PATCHES = [
      "    lap_acc[i] += t - lap_t;\n"
      "    lap_t = t;\n"
      "  };\n"),
-    ("  __syncthreads();\n\n  if (xw) {\n",
-     "  __syncthreads();\n  lap(0);\n\n  if (xw) {\n"),
-    ("    bar_arrive(BAR_FULL, RT);          // the prologue's rows are written\n",
-     "    lap(1);\n"
-     "    bar_arrive(BAR_FULL, RT);          // the prologue's rows are written\n"),
-    ("      fetch(j1, n1, next);\n      xcompute(RTH, acc);\n"
-     "      bar_sync(BAR_X, RG);\n      store(j1, n1, next);\n"
-     "      bar_sync(BAR_EMPTY, RT);         // the rows these overwrite are read\n"
-     "      xwrite(P + RTH * k, RTH, acc);\n"
-     "      bar_arrive(BAR_FULL, RT);        // step k's rows are written\n"
-     "      bar_sync(BAR_X, RG);\n",
-     "      fetch(j1, n1, next);\n      lap(2);\n      xcompute(RTH, acc);\n"
-     "      lap(3);\n      bar_sync(BAR_X, RG);\n      lap(4);\n"
-     "      store(j1, n1, next);\n      lap(5);\n"
-     "      bar_sync(BAR_EMPTY, RT);\n      lap(6);\n"
-     "      xwrite(P + RTH * k, RTH, acc);\n"
-     "      bar_arrive(BAR_FULL, RT);\n      lap(7);\n"
-     "      bar_sync(BAR_X, RG);\n      lap(8);\n"),
-    ("    bar_sync(BAR_FULL, RT);\n    for (int i = gt; i < 4 * XW; i += RG) {",
-     "    bar_sync(BAR_FULL, RT);\n    lap(1);\n"
-     "    for (int i = gt; i < 4 * XW; i += RG) {"),
-    ("    bar_arrive(BAR_EMPTY, RT);         // x-pass rows 0..3 are read\n",
-     "    lap(2);\n"
-     "    bar_arrive(BAR_EMPTY, RT);         // x-pass rows 0..3 are read\n"),
-    ("      bar_sync(BAR_FULL, RT);          // step k's rows are written\n",
-     "      bar_sync(BAR_FULL, RT);          // step k's rows are written\n"
-     "      lap(3);\n"),
-    ("      if (k + 1 < steps) bar_arrive(BAR_EMPTY, RT);    // step k's rows read\n",
-     "      if (k + 1 < steps) bar_arrive(BAR_EMPTY, RT);    // step k's rows read\n"
-     "      lap(4);\n"),
-    ("      bar_sync(BAR_Y, RG);\n      back_half<RTH, BAR_Y>",
-     "      bar_sync(BAR_Y, RG);\n      lap(5);\n      back_half<RTH, BAR_Y>"),
-    ("                            mx, nm_out, weak, strong);\n"
-     "      bar_sync(BAR_Y, RG);\n",
-     "                            mx, nm_out, weak, strong);\n"
-     "      lap(6);\n      bar_sync(BAR_Y, RG);\n"),
-    ("      for (int i = gt; i < 4 * XW; i += RG) sm[i] = sm[RTH * XW + i];\n"
-     "    }\n  }\n}\n",
-     "      for (int i = gt; i < 4 * XW; i += RG) sm[i] = sm[RTH * XW + i];\n"
-     "      lap(7);\n    }\n  }\n"
+    ("  };\n\n  if (xw) {\n",
+     "  };\n  lap(0);\n\n  if (xw) {\n"),
+    ("      bar_arrive(BAR_FULL, RT);        // the prologue's rows are written\n",
+     "      lap(1);\n"
+     "      bar_arrive(BAR_FULL, RT);        // the prologue's rows are written\n"),
+    ("        fetch(rows, j1, n1, next);\n        xcompute(RTH, acc);\n"
+     "        bar_sync(BAR_X, RG);\n        store(rows, j1, n1, next);\n"
+     "        bar_sync(BAR_EMPTY, RT);       // the rows these overwrite are read\n"
+     "        xwrite(P + RTH * k, RTH, acc);\n"
+     "        bar_arrive(BAR_FULL, RT);      // step k's rows are written\n"
+     "        bar_sync(BAR_X, RG);\n",
+     "        fetch(rows, j1, n1, next);\n        lap(2);\n"
+     "        xcompute(RTH, acc);\n        lap(3);\n"
+     "        bar_sync(BAR_X, RG);\n        lap(4);\n"
+     "        store(rows, j1, n1, next);\n        lap(5);\n"
+     "        bar_sync(BAR_EMPTY, RT);\n        lap(6);\n"
+     "        xwrite(P + RTH * k, RTH, acc);\n"
+     "        bar_arrive(BAR_FULL, RT);\n        lap(7);\n"
+     "        bar_sync(BAR_X, RG);\n        lap(8);\n"),
+    ("      bar_sync(BAR_FULL, RT);          // the prologue's rows are written\n",
+     "      bar_sync(BAR_FULL, RT);          // the prologue's rows are written\n"
+     "      lap(1);\n"),
+    ("      bar_arrive(BAR_EMPTY, RT);       // x-pass rows 0..3 are read\n",
+     "      lap(2);\n"
+     "      bar_arrive(BAR_EMPTY, RT);       // x-pass rows 0..3 are read\n"),
+    ("        bar_sync(BAR_FULL, RT);        // step k's rows are written\n",
+     "        bar_sync(BAR_FULL, RT);        // step k's rows are written\n"
+     "        lap(3);\n"),
+    ("        if (k + 1 < sg.steps || sg.rest > 0) bar_arrive(BAR_EMPTY, RT);\n",
+     "        if (k + 1 < sg.steps || sg.rest > 0) bar_arrive(BAR_EMPTY, RT);\n"
+     "        lap(4);\n"),
+    ("        bar_sync(BAR_Y, RG);\n        back_half<RTH, BAR_Y>",
+     "        bar_sync(BAR_Y, RG);\n        lap(5);\n        back_half<RTH, BAR_Y>"),
+    ("                              gt, packed, mn, mx, nm_out, weak, strong);\n"
+     "        bar_sync(BAR_Y, RG);\n",
+     "                              gt, packed, mn, mx, nm_out, weak, strong);\n"
+     "        lap(6);\n        bar_sync(BAR_Y, RG);\n"),
+    ("        for (int i = gt; i < 4 * XW; i += RG) sm[i] = sm[RTH * XW + i];\n"
+     "      }\n      if (sg.rest == 0) break;\n    }\n  }\n}\n",
+     "        for (int i = gt; i < 4 * XW; i += RG) sm[i] = sm[RTH * XW + i];\n"
+     "        lap(7);\n      }\n      if (sg.rest == 0) break;\n    }\n  }\n"
      "  if (blockIdx.x == 1 && blockIdx.y == (gridDim.y > 1)\n"
      "      && blockIdx.z == 0\n"
      "      && (tid == 0 || tid == RG)) {\n"
+     "    long long b, e;\n"
+     "    span_of(sp, f.B, blockIdx.x, blockIdx.y, blockIdx.z, &b, &e);\n"
      "    for (int i = 0; i < 9; ++i) g_k1_prof[tid / RG][i] = lap_acc[i];\n"
-     "    g_k1_prof[tid / RG][9] = steps;\n"
+     "    g_k1_prof[tid / RG][9] = e - b;\n"
+     "    g_k1_prof[tid / RG][10] = segments_of(sp, b, e);\n"
      "  }\n}\n"),
     ('extern "C" {\n',
      'extern "C" {\nint canny_frontend_stamps(long long* out) {\n'
@@ -182,17 +191,21 @@ def main():
         geo = (ctypes.c_longlong * 7)()
         lib.canny_frontend_ring_geometry(b, h, w, win, geo)
         print(f"window {win}, {b} frames: {float(np.median(ms)):.4f} ms a "
-              f"call (events, median of 5); {geo[2]} runs of {geo[3]} rows, "
-              f"{geo[4]} blocks on {geo[0]} slots; block (1, "
-              f"{int(geo[2] > 1)}): {int(med[9])} steps; cycles per phase "
-              f"of an x-pass warp (thread 0) | a y-pass warp (thread 256)")
+              f"call (events, median of 5); {geo[4]} blocks on {geo[0]} "
+              f"slots, {geo[2]} segments ({geo[2] / geo[4]:.3f} a block), "
+              f"the longest block {geo[3]} steps; the stamped block: "
+              f"{int(med[10])} segments, {int(med[9])} steps; cycles per "
+              f"phase of an x-pass warp (thread 0) | a y-pass warp "
+              f"(thread 256)")
         for i, (xname, yname) in enumerate(PHASES):
             print(f"  {xname:>20}: {int(med[i]):9d} | {yname:>22}: "
                   f"{int(med[16 + i]):9d}")
         print(f"  {'in the kernel':>20}: {int(sum(med[:9])):9d} | "
               f"{'':>22}  {int(sum(med[16:25])):9d}")
-        # a prologue row (4 + 2c of them) against a step row (32 a step)
-        pro, step = med[1] / (4 + win // 2 * 2), sum(med[2:9]) / (32 * med[9])
+        # a prologue row (4 + 2c of them a segment) against a step row (32
+        # a step)
+        pro = med[1] / (med[10] * (4 + win // 2 * 2))
+        step = sum(med[2:9]) / (32 * med[9])
         print(f"  prologue {med[1] / sum(med[:9]):.1%} of the x-pass warp's "
               f"cycles; set-up {med[0] / sum(med[:9]):.1%}; a prologue row "
               f"{pro:.0f} cycles, a step row {step:.0f}: w = {pro / step:.3f}")
