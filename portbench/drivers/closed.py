@@ -9,8 +9,9 @@ Traffic parameters (``portbench/traffic/<mix>.json``):
   frames of the pool, a ``(batch, H, W)`` view);
 * ``batch``, ``depth``;
 * ``pool_bytes``: the pool holds at least this many bytes of frames (a
-  whole number of requests), made on the card from the seed; requests take
-  its inputs round-robin;
+  whole number of requests; a frame's bytes are its pixels times its type's
+  size, ``harness/spec.py:frame_itemsize``), made on the card from the seed;
+  requests take its inputs round-robin;
 * ``sample_pixels``: enough requests to hold that many pixels (at least
   one) have their outputs judged;
 * ``trace_after_s``, ``trace_requests``, ``trace_max_s``: the traced slice
@@ -30,15 +31,17 @@ from collections import deque
 
 from portbench.harness.check import Reservoir
 from portbench.harness.device import Waits
+from portbench.harness.spec import frame_itemsize, frame_type
 from portbench.reference import frames
 
 
 def plan(config: dict, traffic: dict, seed: int) -> dict:
     """The traffic drawn from ``seed``, on the host: the pool's frames."""
     h, w, b = config["height"], config["width"], traffic["batch"]
-    n = b * math.ceil(math.ceil(traffic["pool_bytes"] / (h * w)) / b)
+    frame_bytes = h * w * frame_itemsize(config)
+    n = b * math.ceil(math.ceil(traffic["pool_bytes"] / frame_bytes) / b)
     return {"seed": seed, "params": frames.frame_params(n, h, w, seed),
-            "pool_frames": n, "pool_bytes": n * h * w}
+            "pool_frames": n, "pool_bytes": n * frame_bytes}
 
 
 class Workload:
@@ -49,7 +52,8 @@ class Workload:
         self.depth = traffic["depth"]
         self.traffic = traffic
         self.pool = frames.make_pool(plan["params"], h, w, plan["seed"],
-                                     device, config["scene_width"])
+                                     device, config["scene_width"],
+                                     *frame_type(config))
         n = self.pool.shape[0]
         self.single = traffic["entry"] == "call"
         if self.single and b == 1:

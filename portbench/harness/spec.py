@@ -4,7 +4,10 @@ A cell (``workloads[]``) names a configuration and a traffic mix.  Each
 piece is a file of its own, so a later cell, mix, driver or metric is a new
 file and never an edit:
 
-* the configuration: ``configs[].file`` (a JSON object of sizes);
+* the configuration: ``configs[].file`` (a JSON object of sizes; its
+  frames' type is ``dtype``, ``"uint8"`` where the key is absent, or
+  ``"uint16"``, and ``full_scale`` the scene's white level, 255 where
+  absent: :func:`frame_type`);
 * the traffic mix: ``portbench/traffic/<traffic>.json``, which names its
   driver, ``portbench/drivers/<driver>.py``;
 * each metric: ``portbench/metrics/<name>.py``, whose ``read(run)`` gives
@@ -24,7 +27,11 @@ import re
 from dataclasses import dataclass
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parents[2]
+# a frame type a configuration may state, and its largest value
+FRAME_TYPES = {"uint8": 255, "uint16": 65535}
 
 
 @dataclass
@@ -40,6 +47,29 @@ class Cell:
 
     def metrics(self, trace: bool) -> list:
         return self.per_layer if trace else self.end_to_end
+
+
+def frame_type(config: dict) -> tuple[str, int]:
+    """``(dtype, full_scale)`` of a configuration's frames; ``ValueError``,
+    saying why, for a type not in :data:`FRAME_TYPES` or a white level that
+    is not a whole number from 1 to the type's largest value."""
+    dtype = config.get("dtype", "uint8")
+    if dtype not in FRAME_TYPES:
+        raise ValueError(f"configuration {config.get('name')!r}: dtype "
+                         f"{dtype!r} is not one of {sorted(FRAME_TYPES)}")
+    full = config.get("full_scale", 255)
+    top = FRAME_TYPES[dtype]
+    if isinstance(full, bool) or not isinstance(full, int) \
+            or not 1 <= full <= top:
+        raise ValueError(f"configuration {config.get('name')!r}: full_scale "
+                         f"{full!r} is not a whole number from 1 to {top}, "
+                         f"the largest {dtype} value")
+    return dtype, full
+
+
+def frame_itemsize(config: dict) -> int:
+    """Bytes a pixel of the configuration's frames."""
+    return np.dtype(frame_type(config)[0]).itemsize
 
 
 def load_benchmark(root: Path = ROOT) -> dict:
@@ -67,6 +97,7 @@ def resolve(name: str, root: Path = ROOT) -> Cell:
     conf = {c["name"]: c for c in bench["configs"]}[w["config"]]
     with open(root / conf["file"]) as f:
         config = json.load(f)
+    frame_type(config)
     traffic = load_traffic(w["traffic"], root)
     e2e, layer = cell_metrics(bench, name)
     for m in e2e + layer:

@@ -7,16 +7,19 @@ path) and ``frontend_tail_kernel`` with ``large_*`` (the scratch path).
 
 The floor is frozen here, from the hand model of the work as it stood when
 the benchmark was defined (``utils/roofline.py:kernel_bounds``,
-``"frontend"``): a frame's bytes, its uint8 pixels read once and the two
-packed uint32 masks (weak, strong) written once, at the card's HBM rate,
-against its operations, ``4 * window + 45`` a pixel, at the card's rate of
-separate operations (half the float32 rate, which counts an FMA as two: the
-blur's exactness forbids fusing a multiply and an add); the larger binds.
+``"frontend"``): a frame's bytes, its pixels read once (one byte a uint8
+pixel, two a uint16 one) and the two packed uint32 masks (weak, strong)
+written once, at the card's HBM rate, against its operations, ``4 * window
++ 45`` a pixel whatever the frame's type (the same work, whatever carries
+it), at the card's rate of separate operations (half the float32 rate,
+which counts an FMA as two: the blur's exactness forbids fusing a multiply
+and an add); the larger binds.
 """
 
 import math
 import re
 
+from portbench.harness.spec import frame_itemsize
 from portbench.reference.oracle import gaussian_window
 
 # NVIDIA's data sheet, H100 SXM at 700 W: HBM bytes a second, and separate
@@ -35,13 +38,20 @@ def ops_per_px(window: int) -> int:
     return 4 * window + 45
 
 
-def frame_floor_s(h: int, w: int, window: int, device_kind: str):
-    """K1's least time on one ``(h, w)`` frame, or None for a card not in
-    the table."""
+def frame_bytes(h: int, w: int, itemsize: int = 1) -> int:
+    """The bytes K1 must move for one ``(h, w)`` frame of ``itemsize``-byte
+    pixels: the frame read once, two packed masks written once."""
+    return h * w * itemsize + 2 * h * math.ceil(w / 32) * 4
+
+
+def frame_floor_s(h: int, w: int, window: int, device_kind: str,
+                  itemsize: int = 1):
+    """K1's least time on one ``(h, w)`` frame of ``itemsize``-byte pixels,
+    or None for a card not in the table."""
     peaks = PEAKS.get(device_kind)
     if peaks is None:
         return None
-    nbytes = h * w + 2 * h * math.ceil(w / 32) * 4
+    nbytes = frame_bytes(h, w, itemsize)
     return max(nbytes / peaks["hbm_bytes_per_s"],
                h * w * ops_per_px(window) / peaks["ops_per_s"])
 
@@ -50,7 +60,7 @@ def floor_s(run):
     """K1's least time a request of ``run``."""
     c = run.config
     f = frame_floor_s(c["height"], c["width"], gaussian_window(c["sigma"]),
-                      run.device_kind)
+                      run.device_kind, frame_itemsize(c))
     return None if f is None else f * run.frames_per_request
 
 

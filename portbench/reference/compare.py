@@ -33,7 +33,7 @@ WORKER = [sys.executable, "-c",
 
 def oracle_edges(frame: np.ndarray, sigma: float, min_val: int, max_val: int,
                  mode: str) -> np.ndarray:
-    """The oracle's int16 {0, 255} map of one uint8 frame."""
+    """The oracle's int16 {0, 255} map of one uint8 or uint16 frame."""
     smoothed = oracle.gaussian_blur(frame, sigma)
     nm = oracle.nonmax_suppression(*oracle.sobel(smoothed))
     if mode == "strict-reference":

@@ -11,6 +11,9 @@ frame, the phases of the sinusoid and the centre and radius of
 the disc (:func:`frame_params`, on the host, NumPy's generator) and the
 noise (a ``torch.Generator`` on the pool's device, in a few large calls).
 So a seed changes what the frames show and never their number or size.
+A configuration's frame type sets the scene's white level: its levels are
+those of ``make_image`` (a white level of 255) scaled to the level it
+states, so a 16-bit frame shows the 8-bit scene with finer steps.
 Imports only NumPy and PyTorch: nothing of the program.
 """
 
@@ -47,15 +50,21 @@ def noise_seed(seed: int) -> int:
 
 
 def make_pool(params: np.ndarray, h: int, w: int, seed: int, device,
-              scene_width: int):
-    """One uint8 ``(h, w)`` frame a row of ``params``
-    (:func:`frame_params`), as an ``(n, h, w)`` tensor made on ``device``
-    with the noise of ``seed``; the scene is ``make_image``'s at
-    ``scene_width``, scaled by ``w / scene_width``."""
+              scene_width: int, dtype: str = "uint8", full_scale: int = 255):
+    """One ``(h, w)`` frame of ``dtype`` (``"uint8"`` or ``"uint16"``) a
+    row of ``params`` (:func:`frame_params`), as an ``(n, h, w)`` tensor
+    made on ``device`` with the noise of ``seed``; the scene is
+    ``make_image``'s at ``scene_width``, scaled by ``w / scene_width``, its
+    levels by ``full_scale / 255``, clipped to ``[0, full_scale]``.  At
+    uint8 and 255 the levels are ``make_image``'s own (a factor of exactly
+    1.0)."""
     import torch
 
     n = params.shape[0]
     scale = w / scene_width
+    level = full_scale / 255.0
+    base, amplitude = BASE * level, AMPLITUDE * level
+    disc, noise_sd = DISC * level, NOISE * level
     # the noise is drawn on the scene's grid and each pixel takes the
     # sample of the scene pixel it lies in
     gh, gw = math.ceil(h / scale), math.ceil(w / scale)
@@ -63,7 +72,8 @@ def make_pool(params: np.ndarray, h: int, w: int, seed: int, device,
     ix = (torch.arange(w, device=device) / scale).long().clamp_(max=gw - 1)
     gen = torch.Generator(device=device)
     gen.manual_seed(noise_seed(seed))
-    pool = torch.empty((n, h, w), dtype=torch.uint8, device=device)
+    pool = torch.empty((n, h, w), dtype=getattr(torch, dtype),
+                       device=device)
     yy = torch.arange(h, dtype=torch.float32, device=device).view(1, h, 1)
     xx = torch.arange(w, dtype=torch.float32, device=device).view(1, 1, w)
     chunk = max(1, CHUNK_BYTES // (4 * h * w))
@@ -72,13 +82,13 @@ def make_pool(params: np.ndarray, h: int, w: int, seed: int, device,
                             device=device)
         c = p.shape[0]
         px, py, cy, cx, r = (p[:, k].view(c, 1, 1) for k in range(5))
-        img = BASE + AMPLITUDE * torch.sin(xx / (PERIOD_X * scale) + px) \
+        img = base + amplitude * torch.sin(xx / (PERIOD_X * scale) + px) \
             * torch.cos(yy / (PERIOD_Y * scale) + py)
-        img = img + DISC * (((xx - cx) ** 2 + (yy - cy) ** 2) < r * r)
+        img = img + disc * (((xx - cx) ** 2 + (yy - cy) ** 2) < r * r)
         noise = torch.randn((c, gh, gw), generator=gen, device=device)
         if (gh, gw) != (h, w):
             noise = noise[:, iy][:, :, ix]
-        img = img + NOISE * noise
+        img = img + noise_sd * noise
         # clip, then truncate toward zero, as NumPy's astype(uint8) does
-        pool[s:s + c] = img.clamp_(0.0, 255.0).to(torch.uint8)
+        pool[s:s + c] = img.clamp_(0.0, float(full_scale)).to(pool.dtype)
     return pool

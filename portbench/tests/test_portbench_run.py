@@ -15,7 +15,10 @@ from portbench import run
 from portbench.harness import program, spec
 
 CELLS = [w["name"] for w in spec.load_benchmark()["workloads"]]
-SIZES = {"cam1080": (120, 200), "uhd4k": (144, 256)}
+# a size a test holds, by configuration; the wide one at a sixth of its
+# own, where its 121-tap window still leaves dense edges
+SIZES = {"cam1080": (120, 200), "uhd4k": (144, 256),
+         "cam1080wide": (180, 320)}
 
 
 def run_cell(name, *, wrap=None, trace=False, seconds=0.6, seed=2**33 + 5):
@@ -66,6 +69,8 @@ def test_sound_run_is_correct(cell):
     res = run_cell(cell)
     assert res["correct"] is True, res["checks"]
     assert res["failed"] == 0 and res["attempted"] > 0
+    assert res["checks"]["frames_checked"]["value"] >= \
+        spec.resolve(cell).traffic["batch"]
     assert list(res)[-1] == "checks"
     assert "setup_s" in res["metrics"]
     assert res["device"]["platform"] == "cpu"

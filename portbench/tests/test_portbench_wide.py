@@ -1,16 +1,13 @@
 """The coarse-scale configuration (``configs/cam1080wide.json``: sigma 20,
 a 121-tap window, thresholds 4/12) on the CPU at small sizes: its frames
 through the port's plain CPU path give the frozen oracle's edges, dense
-ones, and the control (taps rounded to bfloat16) does not; its cell,
-``cam1080wide.batch8``, run as ``test_portbench_run.py`` runs the others
-(at this file's size): sound it is correct, with a fault under the timed
-path it is not, and traced it reads no device metric."""
+ones, and the control (taps rounded to bfloat16) does not.  Its cell,
+``cam1080wide.batch8``, runs in ``test_portbench_run.py`` with the others,
+at this file's size."""
 
 import json
 
 import numpy as np
-import pytest
-import test_portbench_run as cells
 import torch
 
 from canny_edge_tpu_torch import CannyTorch
@@ -20,7 +17,9 @@ from portbench.reference import frames
 from portbench.reference.compare import judge, oracle_edges
 from portbench.reference.oracle import gaussian_window
 
-H, W = 180, 320
+from test_portbench_run import SIZES
+
+H, W = SIZES["cam1080wide"]
 
 
 def config():
@@ -67,36 +66,3 @@ def test_control_fails():
         (n, first), = judge((frame.numpy(), c["sigma"], c["min_val"],
                              c["max_val"], c["hysteresis_mode"], [out]))
         assert n > 0 and first is not None
-
-
-CELL = "cam1080wide.batch8"
-
-
-@pytest.fixture
-def sized(monkeypatch):
-    """``test_portbench_run.run_cell`` at this file's size."""
-    monkeypatch.setitem(cells.SIZES, "cam1080wide", (H, W))
-    return cells.run_cell
-
-
-def test_sound_run_is_correct(sized):
-    res = sized(CELL)
-    assert res["correct"] is True, res["checks"]
-    assert res["failed"] == 0 and res["attempted"] > 0
-    assert res["checks"]["frames_checked"]["value"] >= 8
-
-
-@pytest.mark.parametrize("kind", ["altered", "stale", "half_batch"])
-def test_fault_is_not_correct(sized, kind):
-    res = sized(CELL, wrap=lambda m: cells.Fault(m, kind), seconds=2.0)
-    assert res["info"]["requests"] >= 2
-    assert res["correct"] is False, (kind, res["checks"])
-    assert res["checks"]["mismatched_px"]["value"] > 0
-
-
-def test_traced_run_reads_no_device_metric(sized):
-    res = sized(CELL, trace=True, seconds=2.0)
-    assert res["correct"] is True
-    assert res["device"]["busy_s"] == 0
-    assert res["breakdown"]["device_ops"] == []
-    assert set(res["metrics"]) == set()
