@@ -33,15 +33,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
 SIGNATURES = {
     "frontend": {
-        "canny_frontend": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P,
-                           _P],
+        "canny_frontend": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P,
+                           _P, _P],
         "canny_frontend_block": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I,
                                  _I, _I, _P, _P, _P, _P],
-        "canny_frontend_large": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I,
-                                 _I, _I, _I, _P, _P, _P, _P, _L, _P],
-        "canny_frontend_max_window": [],
-        "canny_frontend_smem_bytes": [_I],
-        "canny_frontend_ring_geometry": [_I, _I, _I, _I, _P],
+        "canny_frontend_large": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                                 _I, _I, _I, _I, _P, _P, _P, _P, _L, _P],
+        "canny_frontend_max_window": [_I],
+        "canny_frontend_smem_bytes": [_I, _I],
+        "canny_frontend_ring_geometry": [_I, _I, _I, _I, _P, _I],
         "canny_frontend_ring_spans": [_I, _I, _I, _I, _P,
                                       ctypes.c_longlong],
         "canny_run_plan": [_P, _P, _P, _L],

@@ -1,5 +1,5 @@
 // K1: the Canny front end on Hopper -- uint8 image -> NMS magnitude, or the
-// bit-packed weak/strong hysteresis masks.
+// bit-packed weak/strong hysteresis masks; uint16 image -> the masks.
 //
 // Replaces the Pallas front-end kernels of canny_edge_tpu/kernels/frontend.py
 // (the element-indexed `kern` with its border strips, and `_frontend_kernel`)
@@ -76,6 +76,17 @@
 // half computes on integers (held in floats only where every result is an
 // integer below 2^24, so nothing rounds).  The result is bit-identical to
 // the plain version.
+//
+// uint16 frames: each kernel that reads pixels is overloaded on Frame16
+// (canny_frontend, canny_frontend_large and a plan with isz 2), a separate
+// instantiation beside the uint8 one, into the packed masks only.
+// A uint16 frame's blur reaches 65535 and its gradients 262,140, still
+// exact in floats; where gx^2 + gy^2 passes 2^24 the magnitude and the
+// direction are worked out in FP64 (mag_dir_wide), and the magnitudes are
+// int32 in shared memory.  The tile path's uint16 input shares the blurred
+// tile's bytes (geo_of), so its 11-tap block fits 4 an SM as the uint8 one
+// does; a row of 8-byte alignment (W a multiple of 4) takes a 16-byte chunk
+// in two 8-byte copies.
 
 #include <cstdint>
 #include <cuda_pipeline.h>
@@ -100,30 +111,40 @@ constexpr int TILE_MAX = 103;        // the tile path's widest window
 
 static_assert(XW % XR == 0 && SM_H % YR == 0 && MAG_W % 4 == 0, "geometry");
 
-// The tile path's shared-memory layout of a window: its half-width c, the
-// input tile with its halo, the x-pass buffer (the magnitudes reuse it), the
-// blurred tile and the divisors (and room for the taps).
+// The tile path's shared-memory layout of a window on pixels of `isz`
+// bytes: its half-width c, the input tile with its halo, the x-pass buffer
+// (the magnitudes reuse it), the blurred tile and the divisors (and room
+// for the taps), at byte offsets in_off, tmp_off, sm_off and cnt_off.  A
+// 2-byte tile shares its bytes with the blurred tile, which is written only
+// once the x-pass has read the input: its 11-tap block then fits 4 an SM.
 struct Geo {
-  int c, org, in_w, in_h, in_bytes, tmp_bytes, sm_bytes, bytes;
+  int c, org, in_w, in_h, in_bytes, tmp_bytes, sm_bytes, bytes, in_off,
+      tmp_off, sm_off, cnt_off;
 };
 
-__host__ __device__ constexpr Geo geo_of(int window) {
+__host__ __device__ constexpr Geo geo_of(int window, int isz = 1) {
   const int c = window / 2;
   // the shared tile starts `org` columns left of the output tile: a multiple
   // of 16, so a 16-byte chunk of the tile is a 16-byte chunk of the image row
   const int org = 4 + c <= 16 ? 16 : (4 + c + 15) / 16 * 16;
   const int in_w = (org + TILE_W + 4 + c + 15) / 16 * 16;
   const int in_h = SM_H + 2 * c;
-  const int in_bytes = in_h * in_w;
+  const int in_bytes = in_h * in_w * isz;
   const int tmp_bytes = in_h * XW * 4;
   const int sm_bytes = SM_H * XW * 4;
   const int cnt_bytes = (XW + SM_H + window + 3) / 4 * 16;
+  if (isz == 1)
+    return Geo{c, org, in_w, in_h, in_bytes, tmp_bytes, sm_bytes,
+               in_bytes + tmp_bytes + sm_bytes + cnt_bytes, 0, in_bytes,
+               in_bytes + tmp_bytes, in_bytes + tmp_bytes + sm_bytes};
+  const int shared = in_bytes > sm_bytes ? in_bytes : sm_bytes;
   return Geo{c, org, in_w, in_h, in_bytes, tmp_bytes, sm_bytes,
-             in_bytes + tmp_bytes + sm_bytes + cnt_bytes};
+             tmp_bytes + shared + cnt_bytes, tmp_bytes, 0, tmp_bytes,
+             tmp_bytes + shared};
 }
 
-static_assert(geo_of(3).tmp_bytes >= MAG_H * MAG_W * 2,
-              "magnitudes fit the x-pass buffer");
+static_assert(geo_of(3).tmp_bytes >= MAG_H * MAG_W * 4,
+              "magnitudes fit the x-pass buffer, as int16 and as int32");
 static_assert(geo_of(3).in_bytes % 16 == 0 && geo_of(3).tmp_bytes % 16 == 0 &&
               geo_of(3).sm_bytes % 16 == 0, "16-byte aligned sections");
 
@@ -155,14 +176,59 @@ __device__ __forceinline__ int mag_dir(float gx, float gy) {
   return (m << 2) | dir;
 }
 
+// mag_dir for the gradients of a uint16 frame, integers up to 262,140 held
+// in floats (exact: the blur's levels and their Sobel sums stay below
+// 2^24).  Where gx^2 + gy^2 stays below 2^24, mag_dir is exact as it is:
+// every square and sum is then an integer below 2^24, and the rounded sum
+// reaches 2^24 only where the exact one does.  Above, the squares and the
+// angle predicates are exact in FP64 (below 2^39), the root is the
+// correctly rounded one stepped to the integer root, and 4 * magnitude +
+// direction fits an int.
+__device__ __forceinline__ int mag_dir_wide(float gx, float gy) {
+  if (gx * gx + gy * gy < 16777216.0f) return mag_dir(gx, gy);
+  const double x = gx, y = gy;
+  const double n = x * x + y * y;
+  double k = floor(sqrt(n));
+  if (k * k > n) k -= 1.0;
+  if ((k + 1.0) * (k + 1.0) <= n) k += 1.0;
+  const double ax = fabs(x), ay = fabs(y);
+  const double diff2 = (ax - ay) * (ax - ay);
+  const bool low = ax > ay && 2.0 * ay * ay < diff2;
+  const bool high = ay > ax && diff2 > 2.0 * ax * ax;
+  const double sp = x * y;
+  const int dir = high ? 0 : (low || sp == 0.0) ? 1 : sp > 0.0 ? 2 : 3;
+  return ((int)k << 2) | dir;
+}
+
+// the magnitude and direction of one gradient as a magnitude of type M
+template <typename M>
+__device__ __forceinline__ int mag_dir_of(float gx, float gy) {
+  if constexpr (sizeof(M) == 2) return mag_dir(gx, gy);
+  else return mag_dir_wide(gx, gy);
+}
+
 // Where the kernel reads and writes: the input window (sh, sw) whose texel
 // (halo, halo) is output pixel (0, 0), the (oh, ow) output block, the
 // block's place (row0, col0) in the (H, W) image, and the number of frames
 // B (windows sh x sw apart in src, outputs one map or mask pair apart).
-struct Frame {
-  const uint8_t* src;
+// Frame has uint8 pixels, Frame16 uint16 ones: each kernel that reads the
+// input is one name overloaded on the two, so the uint8 kernels keep their
+// names and their code, and a uint16 kernel is an instantiation of its own.
+template <typename T>
+struct FrameOf {
+  const T* src;
   int sh, sw, halo, oh, ow, row0, col0, H, W, B;
 };
+struct Frame : FrameOf<uint8_t> {};
+struct Frame16 : FrameOf<uint16_t> {};
+
+// a frame's pixel type, and the type of its magnitudes in shared memory:
+// int16 for uint8 frames (4 m + d below 2^13), int32 for uint16 ones (the
+// magnitude reaches 370,727)
+template <typename F>
+using PixelOf = std::remove_const_t<std::remove_pointer_t<decltype(F::src)>>;
+template <typename F>
+using MagOf = std::conditional_t<sizeof(PixelOf<F>) == 1, int16_t, int32_t>;
 
 // bar.sync / bar.arrive on named barrier `id` (1..15) of `n` threads
 __device__ __forceinline__ void bar_sync(int id, int n) {
@@ -176,20 +242,21 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
 // of frame z's output block: Sobel, magnitude and direction, NMS and the
 // output, from the floored blur `sm` (rows [row0-2, row0+TH+2) x columns
 // [col0-4, col0+68) of the image, XW floats a row) in shared memory; `mag`
-// is shared scratch of (TH + 2) x MAG_W int16.  A group of THREADS threads
-// (`tid` its thread) calls it after a barrier that publishes `sm`; the
-// group's barrier is __syncthreads (BAR 0) or named barrier BAR of THREADS
-// threads.
+// is shared scratch of (TH + 2) x MAG_W magnitudes (MagOf<F>).  A group of
+// THREADS threads (`tid` its thread) calls it after a barrier that
+// publishes `sm`; the group's barrier is __syncthreads (BAR 0) or named
+// barrier BAR of THREADS threads.
 // In NMS a warp takes TH / 4 rows of one 32-column word.
-template <int TH = TILE_H, int BAR = 0>
-__device__ __forceinline__ void back_half(const Frame& f, const float* sm,
-                                          int16_t* mag, int z, int ty0,
+template <int TH = TILE_H, int BAR = 0, typename F>
+__device__ __forceinline__ void back_half(const F& f, const float* sm,
+                                          MagOf<F>* mag, int z, int ty0,
                                           int tx0, int tid, int packed,
                                           int mn, int mx,
                                           int16_t* __restrict__ nm_out,
                                           uint32_t* __restrict__ weak,
                                           uint32_t* __restrict__ strong) {
   static_assert(TH % 4 == 0, "back-half geometry");
+  using M = MagOf<F>;
   constexpr int MH = TH + 2;           // magnitude rows [row0-1, row0+TH+1)
   const int H = f.H, W = f.W;
   const int row0 = f.row0 + ty0, col0 = f.col0 + tx0;
@@ -223,7 +290,7 @@ __device__ __forceinline__ void back_half(const Frame& f, const float* sm,
                + (s[2][j + 2] - s[2][j]);
           gy = (s[2][j] + 2.0f * s[2][j + 1] + s[2][j + 2])
                - (s[0][j] + 2.0f * s[0][j + 1] + s[0][j + 2]);
-          v[j] = mag_dir(gx, gy);
+          v[j] = mag_dir_of<M>(gx, gy);
         } else {
           // the reference border rules: gx takes clamped columns and drops
           // off-image row terms, gy clamped rows and drops column terms
@@ -241,13 +308,18 @@ __device__ __forceinline__ void back_half(const Frame& f, const float* sm,
             const float ur = up ? s[0][j + 2] : s[1][j + 2];
             const float dr = dn ? s[2][j + 2] : s[1][j + 2];
             gy = 2.0f * (dm - um) + (rt ? dr - ur : 0.0f) + (lf ? dl - ul : 0.0f);
-            v[j] = mag_dir(gx, gy);
+            v[j] = mag_dir_of<M>(gx, gy);
           }
         }
       }
-      const uint32_t lo = (uint32_t)(uint16_t)v[0] | ((uint32_t)(uint16_t)v[1] << 16);
-      const uint32_t hi = (uint32_t)(uint16_t)v[2] | ((uint32_t)(uint16_t)v[3] << 16);
-      *reinterpret_cast<uint2*>(mag + y * MAG_W + 4 * g) = make_uint2(lo, hi);
+      if constexpr (sizeof(M) == 2) {
+        const uint32_t lo = (uint32_t)(uint16_t)v[0] | ((uint32_t)(uint16_t)v[1] << 16);
+        const uint32_t hi = (uint32_t)(uint16_t)v[2] | ((uint32_t)(uint16_t)v[3] << 16);
+        *reinterpret_cast<uint2*>(mag + y * MAG_W + 4 * g) = make_uint2(lo, hi);
+      } else {
+        *reinterpret_cast<uint4*>(mag + y * MAG_W + 4 * g) =
+            make_uint4(v[0], v[1], v[2], v[3]);
+      }
     }
   };
   if (interior) mag_stage(std::true_type{});
@@ -271,7 +343,7 @@ __device__ __forceinline__ void back_half(const Frame& f, const float* sm,
     const int img_rows = H - (row0 + y0);              // rows in the image
     const int mn4 = 4 * mn, mx4 = 4 * mx;
     const bool writer = lane == 0 && word < wd;
-    const int16_t* p = mag + (y0 + 1) * MAG_W + x + 3;
+    const M* p = mag + (y0 + 1) * MAG_W + x + 3;
     // the four neighbour offsets by direction, one byte each
     constexpr uint32_t OFFS = (uint32_t)MAG_W | (1u << 8)
                               | ((uint32_t)(MAG_W - 1) << 16)
@@ -310,21 +382,26 @@ __device__ __forceinline__ void back_half(const Frame& f, const float* sm,
   }
 }
 
-template <int WINDOW>
-__global__ void __launch_bounds__(THREADS, 4)
-frontend_kernel(Frame f, const float* __restrict__ taps, int packed, int mn,
-                int mx, int vec_ok, int16_t* __restrict__ nm_out,
-                uint32_t* __restrict__ weak, uint32_t* __restrict__ strong) {
+// The tile path's block on frame f (Frame or Frame16): the body of both
+// frontend_kernel overloads.  vec_ok: the rows start on 16 bytes where the
+// frame does (for a uint16 frame 2, or 1 where they start on 8 bytes).
+template <int WINDOW, typename F>
+__device__ __forceinline__ void tile_block(
+    const F& f, const float* __restrict__ taps, int packed, int mn, int mx,
+    int vec_ok, int16_t* __restrict__ nm_out, uint32_t* __restrict__ weak,
+    uint32_t* __restrict__ strong) {
   static_assert(WINDOW >= 3 && WINDOW <= TILE_MAX && WINDOW % 2 == 1,
                 "the tile path's windows");
-  constexpr Geo G = geo_of(WINDOW);
+  using T = PixelOf<F>;
+  constexpr int PPW = 4 / sizeof(T);  // pixels a 32-bit word
+  constexpr int PPC = 16 / sizeof(T); // pixels a 16-byte chunk
+  constexpr Geo G = geo_of(WINDOW, sizeof(T));
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint8_t* in = smem_raw;
-  float* tmp = reinterpret_cast<float*>(smem_raw + G.in_bytes);
-  int16_t* mag = reinterpret_cast<int16_t*>(tmp);
-  float* sm = reinterpret_cast<float*>(smem_raw + G.in_bytes + G.tmp_bytes);
-  float* cnt_x = reinterpret_cast<float*>(smem_raw + G.in_bytes + G.tmp_bytes
-                                          + G.sm_bytes);
+  T* in = reinterpret_cast<T*>(smem_raw + G.in_off);
+  float* tmp = reinterpret_cast<float*>(smem_raw + G.tmp_off);
+  MagOf<F>* mag = reinterpret_cast<MagOf<F>*>(tmp);
+  float* sm = reinterpret_cast<float*>(smem_raw + G.sm_off);
+  float* cnt_x = reinterpret_cast<float*>(smem_raw + G.cnt_off);
   float* cnt_y = cnt_x + XW;           // contiguous with cnt_x
 
   const int H = f.H, W = f.W;
@@ -335,38 +412,47 @@ frontend_kernel(Frame f, const float* __restrict__ taps, int packed, int mn,
   const int row0 = f.row0 + ty0, col0 = f.col0 + tx0;
   const int tid = threadIdx.x;
   // this block's frame of a batch: its window, and 16-byte loads only if it
-  // starts on a 16-byte boundary (the rows are then too: vec_ok)
-  const uint8_t* fsrc = f.src + (size_t)blockIdx.z * f.sh * f.sw;
-  const bool vec = vec_ok && (reinterpret_cast<uintptr_t>(fsrc) & 15u) == 0;
+  // starts on a 16-byte boundary (the rows are then too: vec_ok); a uint16
+  // frame whose rows start on 8 bytes takes a chunk in two 8-byte loads
+  const T* fsrc = f.src + (size_t)blockIdx.z * f.sh * f.sw;
+  const bool vec = (sizeof(T) == 1 ? vec_ok : vec_ok == 2)
+                   && (reinterpret_cast<uintptr_t>(fsrc) & 15u) == 0;
+  const bool vec8 = sizeof(T) == 2 && vec_ok >= 1
+                    && (reinterpret_cast<uintptr_t>(fsrc) & 7u) == 0;
 
   float k[WINDOW];
 #pragma unroll
   for (int t = 0; t < WINDOW; ++t) k[t] = __ldg(taps + t);
 
-  // ---- load: the zero-padded uint8 tile with its halo, 16 bytes a thread;
-  //      a texel is read where it lies in the window and in the image ----
+  // ---- load: the zero-padded tile with its halo, 16 bytes a thread; a
+  //      texel is read where it lies in the window and in the image ----
   {
-    const int ch = G.in_w / 16;
+    const int ch = G.in_w / PPC;
     // window row / column of shared row 0 / column 0
     const int wr0 = ty0 - 2 - c + f.halo, wc0 = tx0 - G.org + f.halo;
     for (int i = tid; i < in_h * ch; i += THREADS) {
       const int y = i / ch, q = i % ch;
-      const int wr = wr0 + y, wc = wc0 + 16 * q;
-      const int gr = row0 - 2 - c + y, gc = col0 - G.org + 16 * q;
-      uint8_t* dst = in + y * G.in_w + 16 * q;
+      const int wr = wr0 + y, wc = wc0 + PPC * q;
+      const int gr = row0 - 2 - c + y, gc = col0 - G.org + PPC * q;
+      T* dst = in + y * G.in_w + PPC * q;
       const bool row_in = wr >= 0 && wr < f.sh && gr >= 0 && gr < H;
-      if (vec && row_in && wc >= 0 && wc + 16 <= f.sw && gc >= 0
-          && gc + 16 <= W) {
+      if (vec && row_in && wc >= 0 && wc + PPC <= f.sw && gc >= 0
+          && gc + PPC <= W) {
         __pipeline_memcpy_async(dst, fsrc + (size_t)wr * f.sw + wc, 16);
+      } else if (sizeof(T) == 2 && vec8 && row_in && wc >= 0
+                 && wc + PPC <= f.sw && gc >= 0 && gc + PPC <= W) {
+        const T* src = fsrc + (size_t)wr * f.sw + wc;
+        __pipeline_memcpy_async(dst, src, 8);
+        __pipeline_memcpy_async(dst + PPC / 2, src + PPC / 2, 8);
       } else {
         uint32_t wds[4] = {0u, 0u, 0u, 0u};
         if (row_in) {
-          const uint8_t* src = fsrc + (size_t)wr * f.sw;
+          const T* src = fsrc + (size_t)wr * f.sw;
 #pragma unroll
-          for (int b = 0; b < 16; ++b) {
+          for (int b = 0; b < PPC; ++b) {
             const int cc = wc + b, gcc = gc + b;
             if (cc >= 0 && cc < f.sw && gcc >= 0 && gcc < W)
-              wds[b >> 2] |= (uint32_t)src[cc] << (8 * (b & 3));
+              wds[b / PPW] |= (uint32_t)src[cc] << (8 * sizeof(T) * (b % PPW));
           }
         }
         *reinterpret_cast<uint4*>(dst) = make_uint4(wds[0], wds[1], wds[2], wds[3]);
@@ -404,18 +490,20 @@ frontend_kernel(Frame f, const float* __restrict__ taps, int packed, int mn,
     for (int j = 0; j < XR; ++j) acc[j] = 0.0f;
     {
       constexpr int XOFF = G.org - 4 - WINDOW / 2;
-      constexpr int S = XOFF & 3;              // first byte within its word
+      constexpr int S = XOFF % PPW;            // first pixel within its word
       constexpr int NV = XR + WINDOW - 1;
-      constexpr int NW = (S + NV + 3) / 4;
+      constexpr int NW = (S + NV + PPW - 1) / PPW;
+      constexpr uint32_t MASK = sizeof(T) == 1 ? 0xffu : 0xffffu;
       const uint32_t* src = reinterpret_cast<const uint32_t*>(in)
-                            + y * (G.in_w / 4) + (XOFF >> 2) + g * (XR / 4);
+                            + y * (G.in_w / PPW) + XOFF / PPW + g * (XR / PPW);
       uint32_t wv[NW];
 #pragma unroll
       for (int m = 0; m < NW; ++m) wv[m] = src[m];
       float v[NV];
 #pragma unroll
       for (int j = 0; j < NV; ++j)
-        v[j] = (float)((wv[(S + j) >> 2] >> (8 * ((S + j) & 3))) & 0xffu);
+        v[j] = (float)((wv[(S + j) / PPW] >> (8 * sizeof(T) * ((S + j) % PPW)))
+                       & MASK);
 #pragma unroll
       for (int t = 0; t < WINDOW; ++t)
 #pragma unroll
@@ -463,14 +551,33 @@ frontend_kernel(Frame f, const float* __restrict__ taps, int packed, int mn,
             weak, strong);
 }
 
-// the shared memory a block of this window needs
-int smem_bytes(int window) { return geo_of(window).bytes; }
+template <int WINDOW>
+__global__ void __launch_bounds__(THREADS, 4)
+frontend_kernel(Frame f, const float* __restrict__ taps, int packed, int mn,
+                int mx, int vec_ok, int16_t* __restrict__ nm_out,
+                uint32_t* __restrict__ weak, uint32_t* __restrict__ strong) {
+  tile_block<WINDOW>(f, taps, packed, mn, mx, vec_ok, nm_out, weak, strong);
+}
 
 template <int WINDOW>
-cudaError_t launch(const Frame& f, const float* taps, int packed, int mn,
+__global__ void __launch_bounds__(THREADS, 4)
+frontend_kernel(Frame16 f, const float* __restrict__ taps, int packed, int mn,
+                int mx, int vec_ok, int16_t* __restrict__ nm_out,
+                uint32_t* __restrict__ weak, uint32_t* __restrict__ strong) {
+  tile_block<WINDOW>(f, taps, packed, mn, mx, vec_ok, nm_out, weak, strong);
+}
+
+// the shared memory a block of this window needs, on pixels of `isz` bytes
+int smem_bytes(int window, int isz = 1) { return geo_of(window, isz).bytes; }
+
+template <int WINDOW, typename F>
+cudaError_t launch(const F& f, const float* taps, int packed, int mn,
                    int mx, int16_t* nm_out, uint32_t* weak, uint32_t* strong,
                    cudaStream_t stream) {
-  const int bytes = smem_bytes(WINDOW);
+  constexpr int isz = sizeof(PixelOf<F>);
+  void (*kern)(F, const float*, int, int, int, int, int16_t*, uint32_t*,
+               uint32_t*) = frontend_kernel<WINDOW>;
+  const int bytes = smem_bytes(WINDOW, isz);
   if (bytes > 48 * 1024) {
     // once per device and instantiation, and always to the device's limit
     static bool opted_in[64];
@@ -481,7 +588,7 @@ cudaError_t launch(const Frame& f, const float* taps, int packed, int mn,
     const int limit = masks::smem_optin_limit();
     if (bytes > limit) return cudaErrorInvalidValue;
     if (!opted_in[dev]) {
-      e = cudaFuncSetAttribute(frontend_kernel<WINDOW>,
+      e = cudaFuncSetAttribute(kern,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                limit);
       if (e != cudaSuccess) return e;
@@ -489,12 +596,16 @@ cudaError_t launch(const Frame& f, const float* taps, int packed, int mn,
     }
   }
   // 16-byte loads: every window row and the tile's first column start on a
-  // 16-byte boundary if the frame does (each block tests its frame)
-  const int vec_ok = f.sw % 16 == 0 && f.halo % 16 == 0;
+  // 16-byte boundary if the frame does (each block tests its frame); for a
+  // uint16 frame 2 there, 1 where they start on 8 bytes
+  const int ppc = 16 / isz;
+  const int vec_ok = isz == 1 ? f.sw % 16 == 0 && f.halo % 16 == 0
+      : f.sw % ppc == 0 && f.halo % ppc == 0 ? 2
+      : f.sw % (ppc / 2) == 0 && f.halo % (ppc / 2) == 0 ? 1 : 0;
   const dim3 grid((f.ow + TILE_W - 1) / TILE_W, (f.oh + TILE_H - 1) / TILE_H,
                   f.B);
-  frontend_kernel<WINDOW><<<grid, THREADS, bytes, stream>>>(
-      f, taps, packed, mn, mx, vec_ok, nm_out, weak, strong);
+  kern<<<grid, THREADS, bytes, stream>>>(f, taps, packed, mn, mx, vec_ok,
+                                         nm_out, weak, strong);
   return cudaGetLastError();
 }
 
@@ -575,26 +686,27 @@ static_assert(RXR * (RG / 32) == XW, "a warp an x-pass group, a lane a row");
 static_assert(TILE_W * (RTH / 8) == RG && (XW - TILE_W) * RTH == RG,
               "a thread 8 y-pass rows of a column and one of the last 8");
 
-// The ring path's shared-memory layout of a window (byte offsets): taps,
-// column and row divisors, the blurred rows, the magnitudes, the ring and
-// the staging rows of sw bytes (an odd number of words: distinct banks).
+// The ring path's shared-memory layout of a window on pixels of `isz`
+// bytes (byte offsets): taps, column and row divisors, the blurred rows,
+// the magnitudes (int16, or int32 for 2-byte pixels), the ring and the
+// staging rows of sw bytes (an odd number of words: distinct banks).
 struct RingGeo {
   int c, ring, sw, k_off, cx_off, sm_off, mag_off, ring_off, st_off, bytes;
 };
 
-__host__ __device__ constexpr RingGeo ring_geo(int window) {
+__host__ __device__ constexpr RingGeo ring_geo(int window, int isz = 1) {
   const int c = window / 2;
   const int ring = RTH + 2 * c;
-  // x-pass column x at tap t reads staging byte xoff + x + t, xoff < 4
-  const int sw = ((75 + 2 * c + 3) / 4 | 1) * 4;
+  // x-pass column x at tap t reads staging texel xoff + x + t, xoff < 4 / isz
+  const int sw = ((isz * (75 + 2 * c) + 3) / 4 | 1) * 4;
   const int k_off = 0;
   const int cx_off = k_off + (window + 3) / 4 * 16;
   const int sm_off = cx_off + (XW + RDIV + 4) * 4;
   const int mag_off = sm_off + RSM_H * XW * 4;
-  const int ring_off = mag_off + (RTH + 2) * MAG_W * 2;
+  const int ring_off = mag_off + (RTH + 2) * MAG_W * 2 * isz;
   const int st_off = ring_off + ((ring + RMIR) * RS * 4 + 15) / 16 * 16;
   return RingGeo{c, ring, sw, k_off, cx_off, sm_off, mag_off, ring_off,
-                 st_off, st_off + RTH * sw + 16};
+                 st_off, st_off + RTH * sw + 16 * isz};
 }
 
 static_assert(RDIV % RTH == 0, "a refill of the row divisors a whole step's");
@@ -668,8 +780,9 @@ __device__ __forceinline__ void sweep_taps(float (&acc)[N], const float* k_s,
 }
 
 // the x-pass's values: texels of one staging row, from a thread's first
+template <typename T>
 struct TexelLoad {
-  const uint8_t* p;
+  const T* p;
   __device__ __forceinline__ float operator()(int o) const {
     return (float)p[o];
   }
@@ -764,19 +877,24 @@ __device__ inline Walk walk_of(const Spans& sp, int B) {
               steps, (int)(e - b - steps)};
 }
 
-__global__ void __launch_bounds__(RT, 1)
-frontend_ring_kernel(Frame f, const float* __restrict__ taps, int window,
-                     Spans sp, int packed, int mn, int mx, int vec_ok,
-                     int16_t* __restrict__ nm_out,
-                     uint32_t* __restrict__ weak,
-                     uint32_t* __restrict__ strong) {
-  const RingGeo G = ring_geo(window);
+// The ring path's block on frame f (Frame or Frame16): the body of both
+// frontend_ring_kernel overloads.  vec_ok: the frame's rows start on 4
+// bytes where the frame does.
+template <typename F>
+__device__ __forceinline__ void ring_block(
+    const F& f, const float* __restrict__ taps, int window, Spans sp,
+    int packed, int mn, int mx, int vec_ok, int16_t* __restrict__ nm_out,
+    uint32_t* __restrict__ weak, uint32_t* __restrict__ strong) {
+  using T = PixelOf<F>;
+  constexpr int PPW = 4 / sizeof(T);  // pixels a 32-bit word
+  constexpr int PPC = 16 / sizeof(T); // pixels a 16-byte chunk
+  const RingGeo G = ring_geo(window, sizeof(T));
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* k_s = reinterpret_cast<float*>(smem_raw + G.k_off);
   float* cnt_x = reinterpret_cast<float*>(smem_raw + G.cx_off);
   float* cnt_y = cnt_x + XW;           // contiguous with cnt_x
   float* sm = reinterpret_cast<float*>(smem_raw + G.sm_off);
-  int16_t* mag = reinterpret_cast<int16_t*>(smem_raw + G.mag_off);
+  MagOf<F>* mag = reinterpret_cast<MagOf<F>*>(smem_raw + G.mag_off);
   float* ring = reinterpret_cast<float*>(smem_raw + G.ring_off);
   uint8_t* st = smem_raw + G.st_off;
 
@@ -788,14 +906,16 @@ frontend_ring_kernel(Frame f, const float* __restrict__ taps, int window,
   const int P = 4 + 2 * c;             // x-pass rows of blurred rows 0..3
   // x-pass row j of a segment is image row rr0 - 2 - c + j, where rr0 is the
   // image row of its first output row; blurred row b, image row rr0 - 2 +
-  // b, takes x-pass rows [b, b + 2c].  A strip's staging byte 0 is window
-  // column ws0 = (tx0 - 4 - c + halo) & ~3 and x-pass column x at tap t
-  // reads byte xoff + x + t; chunk m of a staging row covers window columns
-  // [cs0 + 16 m, + 16), cs0 = ws0 & ~15.  tx0 is a multiple of 64, so xoff,
-  // ws0 - cs0 and the chunks a row are those of every strip.
+  // b, takes x-pass rows [b, b + 2c].  A strip's staging texel 0 is window
+  // column ws0 = (tx0 - 4 - c + halo) & ~(PPW - 1) and x-pass column x at
+  // tap t reads texel xoff + x + t; chunk m of a staging row covers window
+  // columns [cs0 + PPC m, + PPC), cs0 = ws0 & ~(PPC - 1).  tx0 is a
+  // multiple of 64, so xoff, ws0 - cs0 and the chunks a row are those of
+  // every strip.
   const int wc4 = 4 + c - f.halo;      // tx0 - ws0 - xoff
-  const int xoff = -wc4 & 3;
-  const int lead = -wc4 & 12;          // ws0 - cs0
+  const int xoff = -wc4 & (PPW - 1);
+  // ws0 - cs0, in bytes
+  const int lead = (-wc4 & (PPC - 1) & ~(PPW - 1)) * (int)sizeof(T);
   const int nch = (lead + SW + 15) >> 4;         // chunks a staging row
 
   // where a segment's input rows come from (worked out once a segment):
@@ -805,25 +925,25 @@ frontend_ring_kernel(Frame f, const float* __restrict__ taps, int window,
   // start on 16 bytes, else a word at a time (4 bytes, or bytes), zero off
   // the image.
   struct Src {
-    const uint8_t* p;
+    const T* p;
     int r0, cs0;
     bool vec, vec16;
   };
   auto src_of = [&](const Walk& w) {
-    const uint8_t* p = f.src + (size_t)w.z * f.sh * f.sw;
+    const T* p = f.src + (size_t)w.z * f.sh * f.sw;
     const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-    return Src{p, f.row0 + RTH * w.k0 - 2 - c, w.tx0 + (-wc4 & ~15),
+    return Src{p, f.row0 + RTH * w.k0 - 2 - c, w.tx0 + (-wc4 & ~(PPC - 1)),
                vec_ok && (a & 3u) == 0,
-               vec_ok && (a & 15u) == 0 && f.sw % 16 == 0};
+               vec_ok && (a & 15u) == 0 && f.sw % PPC == 0};
   };
-  auto word_at = [&](const Src& s, const uint8_t* src, int wc, int gc) {
-    if (s.vec && wc >= 0 && wc + 4 <= f.sw && gc >= 0 && gc + 4 <= W)
+  auto word_at = [&](const Src& s, const T* src, int wc, int gc) {
+    if (s.vec && wc >= 0 && wc + PPW <= f.sw && gc >= 0 && gc + PPW <= W)
       return *reinterpret_cast<const uint32_t*>(src + wc);
     uint32_t w = 0u;
 #pragma unroll
-    for (int b = 0; b < 4; ++b)
+    for (int b = 0; b < PPW; ++b)
       if (wc + b >= 0 && wc + b < f.sw && gc + b >= 0 && gc + b < W)
-        w |= (uint32_t)src[wc + b] << (8 * b);
+        w |= (uint32_t)src[wc + b] << (8 * sizeof(T) * b);
     return w;
   };
   // chunk e % nch of input row j0 + e / nch
@@ -832,13 +952,14 @@ frontend_ring_kernel(Frame f, const float* __restrict__ taps, int window,
     const int gr = s.r0 + j0 + i, wr = gr - f.row0 + f.halo;
     if (gr < 0 || gr >= H || wr < 0 || wr >= f.sh)
       return make_uint4(0u, 0u, 0u, 0u);
-    const uint8_t* src = s.p + (size_t)wr * f.sw;
-    const int wc = s.cs0 + 16 * m, gc = wc - f.halo + f.col0;
-    if (s.vec16 && wc >= 0 && wc + 16 <= f.sw && gc >= 0 && gc + 16 <= W)
+    const T* src = s.p + (size_t)wr * f.sw;
+    const int wc = s.cs0 + PPC * m, gc = wc - f.halo + f.col0;
+    if (s.vec16 && wc >= 0 && wc + PPC <= f.sw && gc >= 0 && gc + PPC <= W)
       return __ldg(reinterpret_cast<const uint4*>(src + wc));
-    return make_uint4(word_at(s, src, wc, gc), word_at(s, src, wc + 4, gc + 4),
-                      word_at(s, src, wc + 8, gc + 8),
-                      word_at(s, src, wc + 12, gc + 12));
+    return make_uint4(word_at(s, src, wc, gc),
+                      word_at(s, src, wc + PPW, gc + PPW),
+                      word_at(s, src, wc + 2 * PPW, gc + 2 * PPW),
+                      word_at(s, src, wc + 3 * PPW, gc + 3 * PPW));
   };
   auto put = [&](int e, uint4 v) {         // its words into staging
     const int i = e / nch, m = e - i * nch;
@@ -876,7 +997,8 @@ frontend_ring_kernel(Frame f, const float* __restrict__ taps, int window,
     for (int j = 0; j < RXR; ++j) acc[j] = 0.0f;
     if (lane < n)
       sweep_taps(acc, k_s, window,
-                 TexelLoad{st + lane * SW + xoff + RXR * warp});
+                 TexelLoad<T>{reinterpret_cast<const T*>(st + lane * SW)
+                              + xoff + RXR * warp});
   };
   auto xwrite = [&](int j0, int n, const float (&acc)[RXR]) {
     if (lane >= n) return;
@@ -1031,8 +1153,30 @@ frontend_ring_kernel(Frame f, const float* __restrict__ taps, int window,
   }
 }
 
-// the ring path's shared memory at this window
-int ring_smem_bytes(int window) { return ring_geo(window).bytes; }
+__global__ void __launch_bounds__(RT, 1)
+frontend_ring_kernel(Frame f, const float* __restrict__ taps, int window,
+                     Spans sp, int packed, int mn, int mx, int vec_ok,
+                     int16_t* __restrict__ nm_out,
+                     uint32_t* __restrict__ weak,
+                     uint32_t* __restrict__ strong) {
+  ring_block(f, taps, window, sp, packed, mn, mx, vec_ok, nm_out, weak,
+             strong);
+}
+
+__global__ void __launch_bounds__(RT, 1)
+frontend_ring_kernel(Frame16 f, const float* __restrict__ taps, int window,
+                     Spans sp, int packed, int mn, int mx, int vec_ok,
+                     int16_t* __restrict__ nm_out,
+                     uint32_t* __restrict__ weak,
+                     uint32_t* __restrict__ strong) {
+  ring_block(f, taps, window, sp, packed, mn, mx, vec_ok, nm_out, weak,
+             strong);
+}
+
+// the ring path's shared memory at this window, on pixels of `isz` bytes
+int ring_smem_bytes(int window, int isz = 1) {
+  return ring_geo(window, isz).bytes;
+}
 
 // The ring path's launch on B outputs of (oh, ow) at `window` taps on the
 // current device, worked out in one place for the launch and for
@@ -1069,9 +1213,9 @@ constexpr long long RING_W10 = 6;
 constexpr int RING_MEMO = 8;
 
 cudaError_t ring_launch_of(int B, int oh, int ow, int window,
-                           RingLaunch* g) {
+                           RingLaunch* g, int isz = 1) {
   struct Memo {
-    int dev, B, oh, ow, window;
+    int dev, B, oh, ow, window, isz;
     RingLaunch g;
   };
   static thread_local Memo memo[RING_MEMO];
@@ -1082,16 +1226,20 @@ cudaError_t ring_launch_of(int B, int oh, int ow, int window,
   for (int i = 0; i < kept; ++i) {
     const Memo& m = memo[i];
     if (m.dev == dev && m.B == B && m.oh == oh && m.ow == ow
-        && m.window == window) {
+        && m.window == window && m.isz == isz) {
       *g = m.g;
       return cudaSuccess;
     }
   }
   // the blocks the card holds at once (which also sets the kernel's shared
   // memory attribute to the device's limit)
+  void (*k8)(Frame, const float*, int, Spans, int, int, int, int, int16_t*,
+             uint32_t*, uint32_t*) = frontend_ring_kernel;
+  void (*k16)(Frame16, const float*, int, Spans, int, int, int, int,
+              int16_t*, uint32_t*, uint32_t*) = frontend_ring_kernel;
   int slots = 0;
-  e = masks::coop_blocks((const void*)frontend_ring_kernel, RT,
-                         ring_smem_bytes(window), 8, &slots);
+  e = masks::coop_blocks(isz == 1 ? (const void*)k8 : (const void*)k16, RT,
+                         ring_smem_bytes(window, isz), 8, &slots);
   if (e != cudaSuccess) return e;
   const int strips = (ow + TILE_W - 1) / TILE_W, steps = (oh + RTH - 1) / RTH;
   const long long columns = (long long)strips * B, P = 4 + 2 * (window / 2);
@@ -1131,28 +1279,31 @@ cudaError_t ring_launch_of(int B, int oh, int ow, int window,
   // every segment x-passes its prologue and its steps' rows
   g->xpass_rows = g->segments * P + RTH * total;
   g->out_rows = columns * oh;
-  memo[oldest] = Memo{dev, B, oh, ow, window, *g};
+  memo[oldest] = Memo{dev, B, oh, ow, window, isz, *g};
   kept = kept < RING_MEMO ? kept + 1 : kept;
   oldest = (oldest + 1) % RING_MEMO;
   return cudaSuccess;
 }
 
-cudaError_t launch_ring(const Frame& f, const float* taps, int window,
+template <typename F>
+cudaError_t launch_ring(const F& f, const float* taps, int window,
                         int packed, int mn, int mx, int16_t* nm_out,
                         uint32_t* weak, uint32_t* strong,
                         cudaStream_t stream) {
+  constexpr int isz = sizeof(PixelOf<F>);
   RingLaunch g;
-  const cudaError_t e = ring_launch_of(f.B, f.oh, f.ow, window, &g);
+  const cudaError_t e = ring_launch_of(f.B, f.oh, f.ow, window, &g, isz);
   if (e != cudaSuccess) return e;
   const dim3 grid = g.sp.run > 0 ? dim3(g.strips, g.runs, f.B)
                                  : dim3((unsigned)g.blocks, 1, 1);
-  frontend_ring_kernel<<<grid, RT, ring_smem_bytes(window), stream>>>(
-      f, taps, window, g.sp, packed, mn, mx, f.sw % 4 == 0, nm_out, weak,
-      strong);
+  frontend_ring_kernel<<<grid, RT, ring_smem_bytes(window, isz), stream>>>(
+      f, taps, window, g.sp, packed, mn, mx, f.sw % (4 / isz) == 0, nm_out,
+      weak, strong);
   return cudaGetLastError();
 }
 
-bool valid(const Frame& f, int window) {
+template <typename F>
+bool valid(const F& f, int window) {
   return !(f.oh <= 0 || f.ow <= 0 || f.H <= 0 || f.W <= 0 || f.halo < 0
            || f.B < 1 || f.B > 65535
            || f.sh != f.oh + 2 * f.halo || f.sw != f.ow + 2 * f.halo
@@ -1160,8 +1311,8 @@ bool valid(const Frame& f, int window) {
 }
 
 // the tile instantiation of `window` (odd, 3..TILE_MAX), found from W up
-template <int W>
-cudaError_t launch_tile(int window, const Frame& f, const float* taps,
+template <int W, typename F>
+cudaError_t launch_tile(int window, const F& f, const float* taps,
                         int packed, int mn, int mx, int16_t* nm_out,
                         uint32_t* weak, uint32_t* strong, cudaStream_t stream) {
   if constexpr (W > TILE_MAX) {
@@ -1175,10 +1326,13 @@ cudaError_t launch_tile(int window, const Frame& f, const float* taps,
 }
 
 // windows 3..TILE_MAX take their tile instantiation, every wider one the
-// ring (cudaErrorInvalidValue past what its shared memory holds)
-int run(const Frame& f, const void* taps, int window, int packed, int mn,
+// ring (cudaErrorInvalidValue past what its shared memory holds); a uint16
+// frame only into the packed masks (its magnitudes pass an int16 map)
+template <typename F>
+int run(const F& f, const void* taps, int window, int packed, int mn,
         int mx, void* nm_out, void* weak, void* strong, void* stream) {
-  if (!valid(f, window)) return (int)cudaErrorInvalidValue;
+  if (!valid(f, window) || (sizeof(PixelOf<F>) == 2 && !packed))
+    return (int)cudaErrorInvalidValue;
   const float* t = (const float*)taps;
   int16_t* nm = (int16_t*)nm_out;
   uint32_t *wk = (uint32_t*)weak, *sg = (uint32_t*)strong;
@@ -1252,22 +1406,28 @@ __global__ void large_divisors(Frame f, const float* __restrict__ taps,
   }
 }
 
-__global__ void __launch_bounds__(LX)
-large_xpass(Frame f, const float* __restrict__ taps, int window,
-            const float* __restrict__ cnt_x, float* __restrict__ tmp) {
+// the x-pass's block on frame f (Frame or Frame16): the body of both
+// large_xpass overloads
+template <typename F>
+__device__ __forceinline__ void xpass_block(const F& f,
+                                            const float* __restrict__ taps,
+                                            int window,
+                                            const float* __restrict__ cnt_x,
+                                            float* __restrict__ tmp) {
   __shared__ float tex[LX + TCH];      // texels of outputs x0.. at taps t0..
   __shared__ float k_s[TCH];
+  using T = PixelOf<F>;
   const Large L = large_of(1, f.oh, f.ow, window);
   const int c = window / 2, tid = threadIdx.x;
   const int x0 = blockIdx.x * LX, x = x0 + tid;
-  const uint8_t* fsrc = f.src + (size_t)blockIdx.z * f.sh * f.sw;
+  const T* fsrc = f.src + (size_t)blockIdx.z * f.sh * f.sw;
   float* ftmp = tmp + (size_t)blockIdx.z * L.nt * L.nx;
   const float cx = x < L.nx ? cnt_x[x] : 1.0f;
   for (int i = blockIdx.y; i < L.nt; i += gridDim.y) {
     // image row gr, window row wr; output x is image column col0 - 2 + x
     const int gr = f.row0 - 2 - c + i, wr = gr - f.row0 + f.halo;
     const bool row_in = gr >= 0 && gr < f.H && wr >= 0 && wr < f.sh;
-    const uint8_t* src = fsrc + (size_t)(row_in ? wr : 0) * f.sw;
+    const T* src = fsrc + (size_t)(row_in ? wr : 0) * f.sw;
     float acc = 0.0f;
     for (int t0 = 0; t0 < window; t0 += TCH) {
       const int n = min(TCH, window - t0);
@@ -1285,6 +1445,18 @@ large_xpass(Frame f, const float* __restrict__ taps, int window,
     }
     if (x < L.nx) ftmp[(size_t)i * L.nx + x] = __fdiv_rn(acc, cx);
   }
+}
+
+__global__ void __launch_bounds__(LX)
+large_xpass(Frame f, const float* __restrict__ taps, int window,
+            const float* __restrict__ cnt_x, float* __restrict__ tmp) {
+  xpass_block(f, taps, window, cnt_x, tmp);
+}
+
+__global__ void __launch_bounds__(LX)
+large_xpass(Frame16 f, const float* __restrict__ taps, int window,
+            const float* __restrict__ cnt_x, float* __restrict__ tmp) {
+  xpass_block(f, taps, window, cnt_x, tmp);
 }
 
 __global__ void __launch_bounds__(LY)
@@ -1321,13 +1493,17 @@ large_ypass(Frame f, const float* __restrict__ taps, int window,
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 4)
-frontend_tail_kernel(Frame f, const float* __restrict__ blur, int packed,
-                     int mn, int mx, int16_t* __restrict__ nm_out,
-                     uint32_t* __restrict__ weak,
-                     uint32_t* __restrict__ strong) {
+// the tail's block on frame f (Frame or Frame16): the body of both
+// frontend_tail_kernel overloads
+template <typename F>
+__device__ __forceinline__ void tail_block(const F& f,
+                                           const float* __restrict__ blur,
+                                           int packed, int mn, int mx,
+                                           int16_t* __restrict__ nm_out,
+                                           uint32_t* __restrict__ weak,
+                                           uint32_t* __restrict__ strong) {
   __shared__ __align__(16) float sm[SM_H * XW];
-  __shared__ __align__(16) int16_t mag[MAG_H * MAG_W];
+  __shared__ __align__(16) MagOf<F> mag[MAG_H * MAG_W];
   const int nx = f.ow + 4, ny = f.oh + 4;
   const float* fb = blur + (size_t)blockIdx.z * ny * nx;
   // shared row y, column x: blur row ty0 + y, column tx0 - 2 + x
@@ -1341,26 +1517,54 @@ frontend_tail_kernel(Frame f, const float* __restrict__ blur, int packed,
             mx, nm_out, weak, strong);
 }
 
-int run_large(const Frame& f, const float* taps, int window, int packed,
+__global__ void __launch_bounds__(THREADS, 4)
+frontend_tail_kernel(Frame f, const float* __restrict__ blur, int packed,
+                     int mn, int mx, int16_t* __restrict__ nm_out,
+                     uint32_t* __restrict__ weak,
+                     uint32_t* __restrict__ strong) {
+  tail_block(f, blur, packed, mn, mx, nm_out, weak, strong);
+}
+
+__global__ void __launch_bounds__(THREADS, 4)
+frontend_tail_kernel(Frame16 f, const float* __restrict__ blur, int packed,
+                     int mn, int mx, int16_t* __restrict__ nm_out,
+                     uint32_t* __restrict__ weak,
+                     uint32_t* __restrict__ strong) {
+  tail_block(f, blur, packed, mn, mx, nm_out, weak, strong);
+}
+
+// the geometry of a frame, as the kernels that read no pixel take it
+inline const Frame& shape_of(const Frame& f) { return f; }
+inline Frame shape_of(const Frame16& f) {
+  Frame g;
+  g.src = nullptr;
+  g.sh = f.sh, g.sw = f.sw, g.halo = f.halo, g.oh = f.oh, g.ow = f.ow;
+  g.row0 = f.row0, g.col0 = f.col0, g.H = f.H, g.W = f.W, g.B = f.B;
+  return g;
+}
+
+template <typename F>
+int run_large(const F& f, const float* taps, int window, int packed,
               int mn, int mx, void* nm_out, void* weak, void* strong,
               float* scratch, unsigned long long scratch_floats,
               cudaStream_t stream) {
   const Large L = large_of(f.B, f.oh, f.ow, window);
-  if (scratch == nullptr || scratch_floats < L.total)
+  if (scratch == nullptr || scratch_floats < L.total
+      || (sizeof(PixelOf<F>) == 2 && !packed))
     return (int)cudaErrorInvalidValue;
   float* cnt = scratch;
   float* tmp = scratch + L.tmp;
   float* blur = scratch + L.blur;
-  large_divisors<<<(L.nx + L.ny + 255) / 256, 256, 0, stream>>>(f, taps,
-                                                               window, cnt);
+  large_divisors<<<(L.nx + L.ny + 255) / 256, 256, 0, stream>>>(
+      shape_of(f), taps, window, cnt);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   large_xpass<<<dim3((L.nx + LX - 1) / LX, min(L.nt, 65535), f.B), LX, 0,
                 stream>>>(f, taps, window, cnt, tmp);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   large_ypass<<<dim3((L.nx + LY - 1) / LY, min((L.ny + YQ - 1) / YQ, 65535),
-                     f.B), LY, 0, stream>>>(f, taps, window, cnt + L.nx, tmp,
-                                            blur);
+                     f.B), LY, 0, stream>>>(shape_of(f), taps, window,
+                                            cnt + L.nx, tmp, blur);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const dim3 grid((f.ow + TILE_W - 1) / TILE_W, (f.oh + TILE_H - 1) / TILE_H,
                   f.B);
@@ -1370,42 +1574,59 @@ int run_large(const Frame& f, const float* taps, int window, int packed,
   return (int)cudaGetLastError();
 }
 
+// `img` as the frame of `isz` bytes a pixel (Frame for 1, Frame16 for 2)
+// it is, handed to `fn`; cudaErrorInvalidValue for another size
+template <typename Fn>
+int on_frame(const void* img, int isz, int sh, int sw, int halo, int oh,
+             int ow, int row0, int col0, int H, int W, int B, Fn fn) {
+  if (isz == 1)
+    return fn(Frame{(const uint8_t*)img, sh, sw, halo, oh, ow, row0, col0, H,
+                    W, B});
+  if (isz == 2)
+    return fn(Frame16{(const uint16_t*)img, sh, sw, halo, oh, ow, row0, col0,
+                      H, W, B});
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Shared memory of a block of canny_frontend and canny_frontend_block at
-// `window` taps (odd, >= 3), on the path the window takes: the tile path's
-// up to TILE_MAX, the ring path's above.
-int canny_frontend_smem_bytes(int window) {
-  return window <= TILE_MAX ? smem_bytes(window) : ring_smem_bytes(window);
+// `window` taps (odd, >= 3) on pixels of `isz` bytes, on the path the
+// window takes: the tile path's up to TILE_MAX, the ring path's above.
+int canny_frontend_smem_bytes(int window, int isz) {
+  return window <= TILE_MAX ? smem_bytes(window, isz)
+                            : ring_smem_bytes(window, isz);
 }
 
 // The largest odd window that canny_frontend and canny_frontend_block take
-// on the current device (0 if the device cannot be asked): 3..103 on the
-// tile path, from 105 on the ring path up to what a block's shared memory
-// holds.  A wider window takes canny_frontend_large.
-int canny_frontend_max_window() {
+// on the current device for pixels of `isz` bytes (0 if the device cannot
+// be asked): 3..103 on the tile path, from 105 on the ring path up to what
+// a block's shared memory holds (a uint16 frame's ring input and
+// magnitudes take twice the bytes).  A wider window takes
+// canny_frontend_large.
+int canny_frontend_max_window(int isz) {
   const int limit = masks::smem_optin_limit();
   int w = 1;
-  while (canny_frontend_smem_bytes(w + 2) <= limit) w += 2;
+  while (canny_frontend_smem_bytes(w + 2, isz) <= limit) w += 2;
   return w < 3 ? 0 : w;
 }
 
 // The ring path's launch on B outputs of (oh, ow) at `window` taps (odd,
-// past TILE_MAX) on the current device, as canny_frontend and
-// canny_frontend_block launch it (ring_launch_of): geo[0..6] = the card's
-// co-resident blocks, strips, segments, the steps of the longest block,
-// blocks, x-pass rows and output rows (segments and rows summed over the
-// blocks).  Returns cudaErrorInvalidValue for another window or an empty
-// batch, and past what the ring's shared memory holds.
+// past TILE_MAX) on the current device, for pixels of `isz` bytes, as
+// canny_frontend and canny_frontend_block launch it (ring_launch_of):
+// geo[0..6] = the card's co-resident blocks, strips, segments, the steps
+// of the longest block, blocks, x-pass rows and output rows (segments and
+// rows summed over the blocks).  Returns cudaErrorInvalidValue for another
+// window or an empty batch, and past what the ring's shared memory holds.
 int canny_frontend_ring_geometry(int B, int oh, int ow, int window,
-                                 long long* geo) {
+                                 long long* geo, int isz) {
   if (B < 1 || B > 65535 || oh < 1 || ow < 1 || window <= TILE_MAX
-      || window % 2 == 0)
+      || window % 2 == 0 || (isz != 1 && isz != 2))
     return (int)cudaErrorInvalidValue;
   RingLaunch g;
-  const cudaError_t e = ring_launch_of(B, oh, ow, window, &g);
+  const cudaError_t e = ring_launch_of(B, oh, ow, window, &g, isz);
   if (e != cudaSuccess) return (int)e;
   const long long v[7] = {g.slots, g.strips, g.segments, g.steps, g.blocks,
                           g.xpass_rows, g.out_rows};
@@ -1413,7 +1634,8 @@ int canny_frontend_ring_geometry(int B, int oh, int ow, int window,
   return 0;
 }
 
-// The spans of that launch's blocks (Spans), as its blocks walk them:
+// The spans of a uint8 frame's launch's blocks (Spans), as its blocks walk
+// them:
 // span[2 i] and span[2 i + 1] are the first step of block i's span and the
 // step past its last, in the launch's sequence of steps (frame, strip, step
 // of ceil(oh / 32)), for the blocks in the grid's order (x, then y, then
@@ -1437,16 +1659,19 @@ int canny_frontend_ring_spans(int B, int oh, int ow, int window,
   return 0;
 }
 
-// img: uint8 (B, H, W), 1 <= B <= 65535; taps: float32 (window); packed ==
-// 0 -> nm_out int16 (B, H, W); packed != 0 -> weak/strong uint32 (B, H,
-// ceil(W/32)).  One launch on `stream` for the batch; returns
-// cudaGetLastError().  Windows 3..103 run their own unrolled instantiation,
-// wider ones the ring path, up to canny_frontend_max_window().
-int canny_frontend(const void* img, int B, int H, int W, const void* taps,
-                   int window, int packed, int mn, int mx, void* nm_out,
-                   void* weak, void* strong, void* stream) {
-  const Frame f{(const uint8_t*)img, H, W, 0, H, W, 0, 0, H, W, B};
-  return run(f, taps, window, packed, mn, mx, nm_out, weak, strong, stream);
+// img: (B, H, W) of `isz` bytes a pixel (1: uint8, 2: uint16), 1 <= B <=
+// 65535; taps: float32 (window); packed == 0 -> nm_out int16 (B, H, W);
+// packed != 0 -> weak/strong uint32 (B, H, ceil(W/32)).  A uint16 frame
+// goes into the packed masks only (its magnitudes pass an int16 map).  One
+// launch on `stream` for the batch; returns cudaGetLastError().  Windows
+// 3..103 run their own unrolled instantiation, wider ones the ring path, up
+// to canny_frontend_max_window(isz).
+int canny_frontend(const void* img, int isz, int B, int H, int W,
+                   const void* taps, int window, int packed, int mn, int mx,
+                   void* nm_out, void* weak, void* strong, void* stream) {
+  return on_frame(img, isz, H, W, 0, H, W, 0, 0, H, W, B, [&](auto f) {
+    return run(f, taps, window, packed, mn, mx, nm_out, weak, strong, stream);
+  });
 }
 
 // Block mode: window uint8 (oh + 2 halo, ow + 2 halo), its texel (halo, halo)
@@ -1465,24 +1690,26 @@ int canny_frontend_block(const void* window_u8, int oh, int ow, int halo,
 }
 
 // Any odd window, the blur through device memory (see run_large): img is
-// uint8 (B, oh + 2 halo, ow + 2 halo), its texel (halo, halo) pixel (row0,
-// col0) of an (H, W) image (the whole image: halo 0, (0, 0), (H, W) = (oh,
-// ow)); outputs as canny_frontend_block's, a frame apart for a batch.
-// scratch: scratch_floats float32, at least (ow + 4 + oh + 4, rounded up to
-// a multiple of 4) + B (ow + 4) (2 oh + 8 + 2 (window / 2)); fewer is
-// refused.  Four launches on `stream`; returns
-// cudaGetLastError().
-int canny_frontend_large(const void* img, int B, int halo, int oh, int ow,
-                         int row0, int col0, int H, int W, const void* taps,
-                         int window, int packed, int mn, int mx, void* nm_out,
-                         void* weak, void* strong, void* scratch,
-                         unsigned long long scratch_floats, void* stream) {
-  const Frame f{(const uint8_t*)img, oh + 2 * halo, ow + 2 * halo, halo,
-                oh, ow, row0, col0, H, W, B};
-  if (!valid(f, window)) return (int)cudaErrorInvalidValue;
-  return run_large(f, (const float*)taps, window, packed, mn, mx, nm_out,
-                   weak, strong, (float*)scratch, scratch_floats,
-                   (cudaStream_t)stream);
+// (B, oh + 2 halo, ow + 2 halo) of `isz` bytes a pixel (uint16 into the
+// packed masks only), its texel (halo, halo) pixel (row0, col0) of an (H,
+// W) image (the whole image: halo 0, (0, 0), (H, W) = (oh, ow)); outputs as
+// canny_frontend_block's, a frame apart for a batch.  scratch:
+// scratch_floats float32, at least (ow + 4 + oh + 4, rounded up to a
+// multiple of 4) + B (ow + 4) (2 oh + 8 + 2 (window / 2)); fewer is
+// refused.  Four launches on `stream`; returns cudaGetLastError().
+int canny_frontend_large(const void* img, int isz, int B, int halo, int oh,
+                         int ow, int row0, int col0, int H, int W,
+                         const void* taps, int window, int packed, int mn,
+                         int mx, void* nm_out, void* weak, void* strong,
+                         void* scratch, unsigned long long scratch_floats,
+                         void* stream) {
+  return on_frame(img, isz, oh + 2 * halo, ow + 2 * halo, halo, oh, ow, row0,
+                  col0, H, W, B, [&](auto f) {
+    if (!valid(f, window)) return (int)cudaErrorInvalidValue;
+    return run_large(f, (const float*)taps, window, packed, mn, mx, nm_out,
+                     weak, strong, (float*)scratch, scratch_floats,
+                     (cudaStream_t)stream);
+  });
 }
 
 // K2's C entry, canny_hysteresis_packed (csrc/hysteresis_packed.cu, its own
@@ -1496,7 +1723,8 @@ typedef int (*FloodEntry)(void* weak, void* strong, const void* nm,
 
 // A launch plan of the fused pipeline (kernels/plan.py:Args, field for
 // field): everything a request on a whole (B, H, W) batch needs but its
-// input, its output and its token.
+// input, its output and its token; isz: its input's bytes a pixel (1:
+// uint8, 2: uint16).
 struct Plan {
   const void* taps;     // float32 (window), 3 <= window <= max window
   void* weak;           // K1's masks, K2's inputs: uint32 (B, H, ceil(W/32))
@@ -1507,13 +1735,13 @@ struct Plan {
   void* total_steps;    // the card's u64 step word
   void* stream;
   FloodEntry flood;
-  int device, B, H, W, window, mn, mx, strict;
+  int device, B, H, W, window, mn, mx, strict, isz;
 };
 
-// One request of a plan: K1 from `img` (uint8 (B, H, W)) into the plan's
-// masks with its bounds, then K2 (strict at pixel (0, 0), a fresh `token`)
-// into `out`, both on the plan's stream, with the plan's device current
-// for the call.  Returns 0, K1's error, or minus K2's error.
+// One request of a plan: K1 from `img` ((B, H, W) of the plan's isz bytes
+// a pixel) into the plan's masks with its bounds, then K2
+// (strict at pixel (0, 0), a fresh `token`) into `out`, both on the plan's
+// stream, with the plan's device current for the call.  Returns 0, K1's error, or minus K2's error.
 int canny_run_plan(const void* plan, const void* img, void* out,
                    unsigned long long token) {
   const Plan& p = *(const Plan*)plan;
@@ -1521,10 +1749,11 @@ int canny_run_plan(const void* plan, const void* img, void* out,
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess && dev != p.device) e = cudaSetDevice(p.device);
   if (e != cudaSuccess) return (int)e;
-  const Frame f{(const uint8_t*)img, p.H, p.W, 0, p.H, p.W, 0, 0, p.H, p.W,
-                p.B};
-  int err = run(f, p.taps, p.window, 1, p.mn, p.mx, nullptr, p.weak,
-                p.strong, p.stream);
+  int err = on_frame(img, p.isz, p.H, p.W, 0, p.H, p.W, 0, 0, p.H, p.W, p.B,
+                     [&](auto f) {
+    return run(f, p.taps, p.window, 1, p.mn, p.mx, nullptr, p.weak, p.strong,
+               p.stream);
+  });
   if (err == 0)
     err = -p.flood(p.weak, p.strong, nullptr, 0, 0, 0,
                    p.edges ? p.edges : out, p.edges ? out : nullptr, p.B,

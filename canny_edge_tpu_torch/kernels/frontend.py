@@ -5,6 +5,10 @@ the packed uint32 ``(weak, strong)`` masks ``(H, ceil(W/32))``
 (:func:`frontend`), and the same for a ``(B, H, W)`` batch in one launch
 (JAX's ``vmap`` over its kernel); the same for one block of a larger image,
 given its window with the halo (:func:`frontend_block`, K1's block mode).
+A uint16 frame or batch goes into the masks only (its magnitudes, up to
+370,727, pass the int16 map), through instantiations of its own, which
+the C entries choose by the frame's bytes a pixel (``itemsize``, 1 or 2);
+block mode takes uint8.
 Any odd window, on one of three paths (:func:`k1_path`): the tile path
 (every stage in one block's shared memory, unrolled per window) takes
 windows 3 to 103, the ring path (column strips streamed through a ring of
@@ -35,12 +39,14 @@ from ._scratch import Scratch
 
 # kernel launches made by this wrapper (the main path's proof of use): all,
 # those in block mode, those on a batch of two frames or more, and those on
-# the ring and the scratch paths (windows from 105 taps)
+# the ring and the scratch paths (windows from 105 taps); and the uint16
+# frames those launches read (a launch plan's counted as its own)
 launches = 0
 block_launches = 0
 batch_launches = 0
 ring_launches = 0
 scratch_launches = 0
+u16_frames = 0
 # what the ring launches ran (:func:`ring_geometry`): blocks, segments (the
 # prologues run), x-pass rows and output rows, summed over their blocks;
 # x-pass rows over output rows is the ring's recompute
@@ -58,8 +64,10 @@ MAX_BATCH = 65535    # frames a launch: the grid's z limit
 # whose frames need more runs in chunks of fewer frames
 SCRATCH_FLOATS = 1 << 28
 
-_max_window: dict[int, int] = {}
+_max_window: dict[tuple, int] = {}
 _scratch = Scratch()
+# the frame types K1 takes, by their bytes a pixel
+ITEMSIZE = {torch.uint8: 1, torch.uint16: 2}
 
 
 def k1_path(window: int, max_window: int) -> str:
@@ -82,17 +90,19 @@ def scratch_floats(b: int, oh: int, ow: int, window: int) -> int:
     return -(-(nx + ny) // 4) * 4 + b * nx * (2 * ny + 2 * (window // 2))
 
 
-def max_window(device: torch.device) -> int:
+def max_window(device: torch.device, itemsize: int = 1) -> int:
     """The largest window K1's tile and ring paths take on ``device`` (a
-    CUDA device), as its shared memory allows (asked of the library once a
-    device); a wider one takes the scratch path."""
+    CUDA device) for frames of ``itemsize`` bytes a pixel, as its shared
+    memory allows (asked of the library once a device and type); a wider
+    one takes the scratch path."""
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
-    if idx not in _max_window:
+    key = (idx, itemsize)
+    if key not in _max_window:
         with _build.device_guard(torch.device("cuda", idx)):
-            _max_window[idx] = \
-                _build.load("frontend").canny_frontend_max_window()
-    return _max_window[idx]
+            _max_window[key] = _build.load(
+                "frontend").canny_frontend_max_window(itemsize)
+    return _max_window[key]
 
 
 class RingGeometry(NamedTuple):
@@ -115,14 +125,15 @@ class RingGeometry(NamedTuple):
 
 
 def ring_geometry(b: int, oh: int, ow: int, window: int,
-                  device: torch.device) -> RingGeometry:
+                  device: torch.device, itemsize: int = 1) -> RingGeometry:
     """K1's ring-path launch on ``b`` outputs of ``(oh, ow)`` at ``window``
-    taps on ``device`` (a CUDA device), as the library launches it;
-    ``RuntimeError`` for a window off the ring path."""
+    taps on ``device`` (a CUDA device), for frames of ``itemsize`` bytes a
+    pixel, as the library launches it; ``RuntimeError`` for a window off
+    the ring path."""
     geo = (ctypes.c_longlong * 7)()
     with _build.device_guard(device):
         err = _build.load("frontend").canny_frontend_ring_geometry(
-            b, oh, ow, window, geo)
+            b, oh, ow, window, geo, itemsize)
     _build.check(err, "canny_frontend_ring_geometry")
     return RingGeometry(*geo)
 
@@ -142,11 +153,12 @@ def threshold_bounds(thresholds):
     return tuple(threshold_bound(t) for t in thresholds)
 
 
-def k1_bound(t: int) -> int:
+def k1_bound(t: int, itemsize: int = 1) -> int:
     """A bound as K1 compares it: 4 * magnitude with 4 * bound in an int;
-    magnitudes lie in [0, 2**13), so the bound clamped to [-1, 2**13]
-    decides alike."""
-    return min(max(t, -1), 1 << 13)
+    the magnitudes of a frame of ``itemsize`` bytes a pixel lie in [0,
+    2**13) for uint8, in [0, 2**19) for uint16 (up to 370,727), so the
+    bound clamped to [-1, 2**13], or to [-1, 2**19], decides alike."""
+    return min(max(t, -1), 1 << 13 if itemsize == 1 else 1 << 19)
 
 
 def _launch(src: torch.Tensor, taps: torch.Tensor, thresholds, geom, entry,
@@ -161,6 +173,7 @@ def _launch(src: torch.Tensor, taps: torch.Tensor, thresholds, geom, entry,
         raise ValueError(f"image on {dev} and taps on {taps.device}: "
                          f"both must be on the same CUDA device")
     window = taps.shape[0]
+    itemsize = ITEMSIZE[src.dtype]
     taps = taps.contiguous()
     b, halo, oh, ow, row0, col0, H, W = geom
     if thresholds is None:
@@ -170,9 +183,10 @@ def _launch(src: torch.Tensor, taps: torch.Tensor, thresholds, geom, entry,
         weak = torch.empty((*lead, oh, cdiv(ow, 32)), dtype=torch.uint32,
                            device=dev)
         strong = torch.empty_like(weak)
-        out = (1, k1_bound(thresholds[0]), k1_bound(thresholds[1]), None,
+        out = (1, k1_bound(thresholds[0], itemsize),
+               k1_bound(thresholds[1], itemsize), None,
                weak.data_ptr(), strong.data_ptr())
-    path = k1_path(window, max_window(dev))
+    path = k1_path(window, max_window(dev, itemsize))
     with _build.device_guard(dev):
         lib = _build.load("frontend")
         stream = _build.stream_handle(dev)
@@ -188,7 +202,8 @@ def _launch(src: torch.Tensor, taps: torch.Tensor, thresholds, geom, entry,
                 scr = _scratch.create(dev, stream, (b, oh, ow, window), 0)
                 scr["floats"] = torch.empty(n, dtype=torch.float32,
                                             device=dev)
-            args = (src.data_ptr(), *geom, taps.data_ptr(), window, *out,
+            args = (src.data_ptr(), itemsize, *geom, taps.data_ptr(),
+                    window, *out,
                     scr["floats"].data_ptr(), n, stream)
         if prep:
             trace.end("k1.prep", prep)
@@ -200,14 +215,16 @@ def _launch(src: torch.Tensor, taps: torch.Tensor, thresholds, geom, entry,
     return path, (nm if thresholds is None else (weak, strong))
 
 
-def ring_counts(b: int, oh: int, ow: int, window: int, dev) -> tuple:
-    """What a launch on ``b`` outputs of ``(oh, ow)`` at ``window`` taps on
-    ``dev`` adds to ``ring_launches``, ``ring_blocks``, ``ring_segments``,
-    ``ring_xpass_rows`` and ``ring_out_rows``: one launch and its geometry
-    (:func:`ring_geometry`) on the ring path, zeros on the others."""
-    if k1_path(window, max_window(dev)) != "ring":
+def ring_counts(b: int, oh: int, ow: int, window: int, dev,
+                itemsize: int = 1) -> tuple:
+    """What a launch on ``b`` outputs of ``(oh, ow)`` of ``itemsize``-byte
+    pixels at ``window`` taps on ``dev`` adds to ``ring_launches``,
+    ``ring_blocks``, ``ring_segments``, ``ring_xpass_rows`` and
+    ``ring_out_rows``: one launch and its geometry (:func:`ring_geometry`)
+    on the ring path, zeros on the others."""
+    if k1_path(window, max_window(dev, itemsize)) != "ring":
         return (0, 0, 0, 0, 0)
-    g = ring_geometry(b, oh, ow, window, dev)
+    g = ring_geometry(b, oh, ow, window, dev, itemsize)
     return (1, g.blocks, g.segments, g.xpass_rows, g.out_rows)
 
 
@@ -223,16 +240,19 @@ def count_ring(counts: tuple) -> None:
     ring_out_rows += out_rows
 
 
-def _count(path: str, geom, window: int, dev, block: bool = False) -> None:
+def _count(path: str, geom, window: int, dev, block: bool = False,
+           itemsize: int = 1) -> None:
     """A launch of :func:`_launch` on ``geom``."""
-    global launches, block_launches, batch_launches, scratch_launches
+    global launches, block_launches, batch_launches, scratch_launches, \
+        u16_frames
     b, _, oh, ow = geom[:4]
     launches += 1
     block_launches += block
     batch_launches += b > 1
     scratch_launches += path == "scratch"
+    u16_frames += b if itemsize == 2 else 0
     if path == "ring":
-        count_ring(ring_counts(b, oh, ow, window, dev))
+        count_ring(ring_counts(b, oh, ow, window, dev, itemsize))
 
 
 def frontend(img: torch.Tensor, taps: torch.Tensor, thresholds=None):
@@ -241,19 +261,26 @@ def frontend(img: torch.Tensor, taps: torch.Tensor, thresholds=None):
     ``img``: uint8 ``(H, W)`` or a batch ``(B, H, W)`` whose results stack
     the frames' (one launch on the card for up to ``MAX_BATCH`` frames, a
     launch a chunk of that many above it; on the scratch path, chunks whose
-    scratch stays within ``SCRATCH_FLOATS``).  Any odd window: up to
-    :func:`max_window` the tile or ring path, above it the scratch path.
-    ``thresholds``: optional ``(min_val, max_val)``, compared as JAX
-    compares an integer map with them (:func:`threshold_bounds`).
+    scratch stays within ``SCRATCH_FLOATS``), or uint16 with
+    ``thresholds``.  Any odd window: up to :func:`max_window` the tile or
+    ring path, above it the scratch path.  ``thresholds``: optional
+    ``(min_val, max_val)``, compared as JAX compares an integer map with
+    them (:func:`threshold_bounds`).
     """
     prep = trace.RECORDING and trace.begin()
     thresholds = threshold_bounds(thresholds)
-    if img.dtype != torch.uint8 or img.dim() not in (2, 3) \
+    if img.dtype not in ITEMSIZE or img.dim() not in (2, 3) \
             or img.numel() == 0:
-        raise ValueError(f"expected a non-empty uint8 (H, W) image or "
-                         f"(B, H, W) batch, got {img.dtype} "
+        raise ValueError(f"expected a non-empty uint8 or uint16 (H, W) "
+                         f"image or (B, H, W) batch, got {img.dtype} "
                          f"{tuple(img.shape)}")
+    if img.dtype == torch.uint16 and thresholds is None:
+        raise ValueError("expected a non-empty uint8 image or batch for the "
+                         "NMS map: a uint16 frame's magnitudes pass the "
+                         "int16 map, so K1 takes one into the packed masks "
+                         "only (backend 'fused', component mode)")
     window = _check_taps(taps)
+    itemsize = ITEMSIZE[img.dtype]
     if img.device.type == "cpu":
         if prep:
             trace.end("k1.prep", prep)
@@ -272,7 +299,7 @@ def frontend(img: torch.Tensor, taps: torch.Tensor, thresholds=None):
     img = img.contiguous()
     h, w = img.shape[-2:]
     per_launch = MAX_BATCH
-    if img.dim() == 3 and k1_path(window, max_window(img.device)) \
+    if img.dim() == 3 and k1_path(window, max_window(img.device, itemsize)) \
             == "scratch":
         per_launch = max(1, min(MAX_BATCH, SCRATCH_FLOATS
                                 // scratch_floats(1, h, w, window)))
@@ -283,10 +310,10 @@ def frontend(img: torch.Tensor, taps: torch.Tensor, thresholds=None):
         b = chunk.shape[0] if chunk.dim() == 3 else 1
         geom = (b, 0, h, w, 0, 0, h, w)
         path, res = _launch(chunk, taps, thresholds, geom,
-                            ("canny_frontend", (b, h, w)), chunk.shape[:-2],
-                            prep)
+                            ("canny_frontend", (itemsize, b, h, w)),
+                            chunk.shape[:-2], prep)
         parts.append(res)
-        _count(path, geom, window, img.device)
+        _count(path, geom, window, img.device, itemsize=itemsize)
     if len(parts) == 1:
         return parts[0]
     return (torch.cat(parts) if thresholds is None else

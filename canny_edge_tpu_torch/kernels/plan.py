@@ -25,12 +25,13 @@ that the allocation is not on the host's way to K1.  At most
 :data:`MAX_PLANS` are kept, the least recently used going first.
 
 A request takes a plan where :func:`applies` says so, which is asked when
-a key is not found (a key holds all it reads): a non-empty uint8 CUDA
-tensor of at most :data:`.frontend.MAX_BATCH` frames, with taps that take
-K1's tile or ring path (3 to :func:`.frontend.max_window` taps); every
-other request keeps the wrappers' path.  The wrappers' counters (K1's
-``launches``, ``batch_launches``, ``ring_launches`` and the ring's
-geometry, ``ring_blocks``, ``ring_segments``, ``ring_xpass_rows``,
+a key is not found (a key holds all it reads): a non-empty uint8 or uint16
+CUDA tensor of at most :data:`.frontend.MAX_BATCH` frames, with taps that
+take K1's tile or ring path (3 to :func:`.frontend.max_window` taps for
+the frame's type); every other request keeps the wrappers' path.  The
+wrappers' counters (K1's ``launches``, ``batch_launches``,
+``u16_frames``, ``ring_launches`` and the ring's geometry,
+``ring_blocks``, ``ring_segments``, ``ring_xpass_rows``,
 ``ring_out_rows``, which a plan works out once, at its build; K2's
 ``launches``, ``batch_launches``) and
 :func:`.hysteresis_packed.flood_steps` count a plan's launches as theirs;
@@ -73,22 +74,22 @@ class Args(ctypes.Structure):
                                    "flood")),
                 *((n, ctypes.c_int) for n in ("device", "B", "H", "W",
                                               "window", "mn", "mx",
-                                              "strict"))]
+                                              "strict", "isz"))]
 
 
 class Plan:
     """A built plan: its argument block and what a request needs of it."""
     __slots__ = ("args", "addr", "run", "shape", "dtype", "device", "batch",
-                 "ring", "keep", "spare")
+                 "u16_frames", "ring", "keep", "spare")
 
 
 def applies(img: torch.Tensor, taps: torch.Tensor) -> bool:
     """Whether a request on ``img`` with ``taps`` takes a launch plan: a
-    non-empty uint8 ``(H, W)`` frame or ``(B, H, W)`` batch of at most
-    :data:`.frontend.MAX_BATCH` frames on a card, and float32 taps, 1-D and
-    contiguous on the same card, of an odd window from 3 taps up to
-    :func:`.frontend.max_window`."""
-    if not img.is_cuda or img.dtype != torch.uint8:
+    non-empty uint8 or uint16 ``(H, W)`` frame or ``(B, H, W)`` batch of at
+    most :data:`.frontend.MAX_BATCH` frames on a card, and float32 taps,
+    1-D and contiguous on the same card, of an odd window from 3 taps up to
+    :func:`.frontend.max_window` for the frame's type."""
+    if not img.is_cuda or img.dtype not in _k1.ITEMSIZE:
         return False
     idx = img.get_device()
     if taps.get_device() != idx or taps.dtype != torch.float32 \
@@ -99,8 +100,8 @@ def applies(img: torch.Tensor, taps: torch.Tensor) -> bool:
             or len(shape) == 3 and shape[0] > _k1.MAX_BATCH:
         return False
     window = taps.shape[0]
-    return window % 2 == 1 and \
-        3 <= window <= _k1.max_window(torch.device("cuda", idx))
+    return window % 2 == 1 and 3 <= window <= _k1.max_window(
+        torch.device("cuda", idx), _k1.ITEMSIZE[img.dtype])
 
 
 def plan_key(idx: int, stream: int, img: torch.Tensor, taps: torch.Tensor,
@@ -111,10 +112,11 @@ def plan_key(idx: int, stream: int, img: torch.Tensor, taps: torch.Tensor,
     the strict rule where K2 applies it (two rows and two columns at
     least) and the output kind.  It holds all that :func:`applies` reads,
     so a key found is a request that takes its plan."""
-    shape = img.shape
-    return (idx, stream, shape, img.dtype, taps.data_ptr(), taps.shape,
+    shape, dtype = img.shape, img.dtype
+    itemsize = dtype.itemsize
+    return (idx, stream, shape, dtype, taps.data_ptr(), taps.shape,
             taps.stride(), taps.dtype, taps.get_device(),
-            k1_bound(bounds[0]), k1_bound(bounds[1]),
+            k1_bound(bounds[0], itemsize), k1_bound(bounds[1], itemsize),
             strict and len(shape) >= 2 and shape[-2] >= 2 and shape[-1] >= 2,
             packed)
 
@@ -138,7 +140,7 @@ def run(img: torch.Tensor, taps: torch.Tensor, bounds, strict: bool,
     plan = _plans.pop(key, None)
     if plan is not None:
         plan_hits += 1
-    elif applies(img, taps):
+    elif applies(img, taps) and not (strict and img.dtype == torch.uint16):
         plan = _build_plan(key)
         plan_builds += 1
         while len(_plans) >= MAX_PLANS:
@@ -171,6 +173,7 @@ def _count(plan: Plan, k2: bool = True) -> None:
     """A plan's launches in the wrappers' counters: K1's, and K2's."""
     _k1.launches += 1
     _k1.batch_launches += plan.batch
+    _k1.u16_frames += plan.u16_frames
     _k1.count_ring(plan.ring)
     if k2:
         _k2.launches += 1
@@ -190,8 +193,9 @@ def _build_plan(key: tuple) -> Plan:
     """The plan of ``key`` (:func:`plan_key`): K2's scratch entry and
     buffers on the key's device and stream, the output's shape, the
     argument block."""
-    idx, stream, shape, _, taps_ptr, taps_shape, _, _, _, mn, mx, strict, \
-        packed = key
+    idx, stream, shape, dtype, taps_ptr, taps_shape, _, _, _, mn, mx, \
+        strict, packed = key
+    itemsize = _k1.ITEMSIZE[dtype]
     dev = torch.device("cuda", idx)
     b, (h, w) = (shape[0] if len(shape) == 3 else 1), shape[-2:]
     k1, k2 = _build.load("frontend"), _build.load("hysteresis_packed")
@@ -211,7 +215,7 @@ def _build_plan(key: tuple) -> Plan:
         None if edges is None else edges.data_ptr(), entry["ctl"].data_ptr(),
         word.data_ptr(), stream,
         ctypes.cast(k2.canny_hysteresis_packed, _P).value, idx, b, h, w,
-        window, mn, mx, int(strict))
+        window, mn, mx, int(strict), itemsize)
     plan.addr = ctypes.addressof(plan.args)
     plan.run = _RUN(("canny_run_plan", k1))
     if packed:
@@ -220,7 +224,8 @@ def _build_plan(key: tuple) -> Plan:
         plan.shape, plan.dtype = tuple(shape), torch.int16
     plan.device = dev
     plan.batch = b > 1
-    plan.ring = _k1.ring_counts(b, h, w, window, dev)
+    plan.u16_frames = b if itemsize == 2 else 0
+    plan.ring = _k1.ring_counts(b, h, w, window, dev, itemsize)
     plan.keep = (entry, word)          # the buffers live as long as the plan
     plan.spare = []
     return plan

@@ -196,7 +196,7 @@ def _bound(nbytes: int, ops: int) -> dict:
 
 def kernel_bounds(hw=(1080, 1920), window: int = 11, block=(1080, 960),
                   extended=(1082, 1024), batch=None,
-                  wide=(64, 131072)) -> dict[str, dict]:
+                  wide=(64, 131072), tile=(10980, 10980)) -> dict[str, dict]:
     """``{kernel: {"bound_ms", "bound_by"}}``: each kernel's least time on
     the H100 SXM at the shapes ``chip_smoke.py`` runs it, from the hand
     model (each input byte read once, each output byte written once).
@@ -212,7 +212,8 @@ def kernel_bounds(hw=(1080, 1920), window: int = 11, block=(1080, 960),
     ``frontend`` at their windows: their bound is ``frontend``'s at that
     ``window``.  ``wide``: the ``(rows, columns)`` of K4's wide path
     (``hysteresis_banded_wide``), bounded as the same function at that
-    width.
+    width.  ``tile``: the uint16 frame of K1's uint16 instantiation
+    (``frontend_u16``: 2 bytes a pixel in, the packed masks out).
     """
     h, w = hw
     wd = -(-w // 32)
@@ -239,4 +240,7 @@ def kernel_bounds(hw=(1080, 1920), window: int = 11, block=(1080, 960),
         "hysteresis_packed_quirk": (3 * eh * ewd * 4,
                                     K2_OPS_PER_WORD * eh * ewd),
         "hysteresis_banded_wide": engine(*wide),
+        "frontend_u16": (2 * tile[0] * tile[1]
+                         + 2 * tile[0] * -(-tile[1] // 32) * 4,
+                         tile[0] * tile[1] * k1_ops_per_px(window)),
     }.items()}

@@ -8,9 +8,10 @@ onto the card, K1 -> K2 a frame, PNGs out), the stage path and
 block mode -> the distributed K2 flood) over meshes on the one card,
 the port's headline bench (``bench_torch.py``: ``canny_fn``'s three
 backends at 1080p, with the roofline of their stages), the batch path, a
-seeded sweep of every kernel mode over random geometry (phase 14), and K1
+seeded sweep of every kernel mode over random geometry (phase 14), K1
 and K4 past their former limits (phase 15: windows above 263 taps, rows
-wider than 32768 columns).
+wider than 32768 columns), and uint16 frames on the ``fused`` path (phase
+16: a 10980x10980 tile, a Sentinel-2 L1C band's size).
 
     python3 chip_smoke.py
 
@@ -135,6 +136,15 @@ Phases (any failure exits non-zero and prints no result):
      (17 to 601 taps) against its plain version, with its path, device ms
      and bound at each window; 0 mismatches; device ms by window and width,
      printed on a ``capacity:`` line.
+ 16. uint16 (``uint16_phase``): a 10980x10980 uint16 tile (a Sentinel-2
+     L1C 10 m band tile's size) at white levels 10000 and 65535 through
+     ``CannyTorch``'s ``fused`` path, with K1's and K2's launch counts and
+     ``u16_frames`` from 0 (one launch of each, one uint16 frame, one
+     plan), bit-equal to the plain PyTorch pipeline of
+     ``portbench/reference/plain_torch.py`` on the card, and K1's masks to
+     its NMS map; K1's uint16 time by CUDA events and torch.profiler beside
+     its bound (``frontend_u16`` on the kernels line), printed on a
+     ``uint16:`` line.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Every measured number also goes to
 standard error as one ``report:`` JSON line and to
@@ -2248,6 +2258,135 @@ def capacity_phase(dev, time_ms, device_ms, hw=SIZES["1080p"],
     return rep, entries
 
 
+# Phase 16: a Sentinel-2 Level-1C 10 m band tile (10980x10980 uint16,
+# reflectance x 10000, thresholds cam1080's 30/90 at that white level) and
+# the same tile at the full uint16 range, whose squared gradients pass 2^24
+S2_TILE = (10980, 10980)
+S2_SCALES = ((10000, 1176, 3529), (65535, 7710, 23130))
+
+
+def s2_tile(h, w, full, seed, dev):
+    """A uint16 ``(h, w)`` tile at white level ``full``, made on ``dev``:
+    the headline frame's sinusoid, disc and noise (``make_image``'s) scaled
+    from 255 to ``full``, so the noise fills the low bits."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    img = 96 + 64 * torch.sin(xx / 17.0) * torch.cos(yy / 23.0)
+    img = img + 80 * (((xx - w / 2) ** 2 + (yy - h / 2) ** 2)
+                      < (min(h, w) / 3) ** 2)
+    img = img + 6 * torch.randn((h, w), generator=g, device=dev)
+    return (img.clamp(0, 255) * (full / 255)).round().to(
+        torch.int32).to(torch.uint16)
+
+
+def uint16_phase(dev, time_ms, device_ms, hw=S2_TILE, scales=S2_SCALES,
+                 seed=2200000601):
+    """Phase 16: uint16 frames on the main path.  At each white level of
+    ``scales``, a tile of ``hw`` (:func:`s2_tile`) through
+    ``CannyTorch(1.4)``'s ``fused`` backend on the card, with K1's and
+    K2's launch counts and ``u16_frames`` set to 0 just before and read
+    just after (one launch of each, one uint16 frame, through a launch
+    plan), held bit for bit against the plain PyTorch pipeline of
+    ``portbench/reference/plain_torch.py`` on the card; K1's uint16
+    instantiation alone, its packed masks against that pipeline's NMS map,
+    timed by CUDA events and torch.profiler beside its bound
+    (``kernel_bounds``' ``frontend_u16``, 2 bytes a pixel and 4 window + 45
+    operations).  Returns ``(report, kernel entries of the kernels
+    line)``."""
+    import torch
+
+    from canny_edge_tpu_torch import CannyTorch
+    from canny_edge_tpu_torch.kernels import frontend as kfe
+    from canny_edge_tpu_torch.kernels import hysteresis_packed as khp
+    from canny_edge_tpu_torch.kernels import plan as kplan
+    from canny_edge_tpu_torch.ops import packed as P
+    from canny_edge_tpu_torch.ops.gaussian import gaussian_kernel
+    from canny_edge_tpu_torch.utils.roofline import kernel_bounds
+    from portbench.reference import plain_torch as PT
+
+    t0 = time.perf_counter()
+    h, w = hw
+    model = CannyTorch(SIGMA)
+    taps = torch.from_numpy(gaussian_kernel(SIGMA)).to(dev)
+    rep = {"shape": f"{h}x{w}", "scales": {}}
+    k1_err = 0
+    for full, mn, mx in scales:
+        tile = s2_tile(h, w, full, seed + full, dev)
+        torch.cuda.synchronize()
+        kfe.launches = kfe.u16_frames = khp.launches = 0
+        planned = kplan.plan_builds + kplan.plan_hits
+        out = model(tile, mn, mx)
+        torch.cuda.synchronize()
+        counts = {"frontend": kfe.launches, "u16_frames": kfe.u16_frames,
+                  "hysteresis_packed": khp.launches,
+                  "plans": kplan.plan_builds + kplan.plan_hits - planned}
+        check(counts == {"frontend": 1, "u16_frames": 1,
+                         "hysteresis_packed": 1, "plans": 1},
+              f"uint16 tile at {full}: counts {counts}")
+        t = time.perf_counter()
+        with PT.no_tf32():
+            s = PT.blur(tile, SIGMA)
+            gx, gy = PT.gradients(s)
+            del s
+            top = int((gx * gx + gy * gy).max())
+            nm = PT.nonmax(gx, gy, PT.magnitude(gx, gy))
+            del gx, gy
+            ref = PT.hysteresis(nm, mn, mx)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        bad = int((out != ref).sum())
+        edges = int((ref == 255).sum())
+        check(bad == 0 and edges > 0,
+              f"uint16 tile at {full}: {bad} pixels differ from plain_torch "
+              f"({edges} edge pixels)")
+        weak, strong = kfe.frontend(tile, taps, (mn, mx))
+        torch.cuda.synchronize()
+        i32 = torch.int32
+        mask_bad = int((weak.view(i32) != P.pack_mask(nm >= mn).view(i32))
+                       .sum() + (strong.view(i32)
+                                 != P.pack_mask(nm >= mx).view(i32)).sum())
+        k1_err = max(k1_err, mask_bad)
+        check(mask_bad == 0, f"uint16 tile at {full}: K1's masks differ from "
+                             f"plain_torch's NMS map in {mask_bad} words")
+        del nm, ref, out, weak, strong
+        k1 = (lambda tile=tile, mn=mn, mx=mx:
+              kfe.frontend(tile, taps, (mn, mx)))
+        by = device_ms(k1)
+        kb = kernel_bounds(tile=hw)["frontend_u16"]
+        rep["scales"][full] = {
+            "thresholds": [mn, mx], "edge_px": edges, "mismatched_px": bad,
+            "max_sq_gradient": top, "launches": counts,
+            "k1_ms": time_ms(k1, 5, 5),
+            "k1_device_ms": sum(by.values()) if by else "not measured",
+            "k1_device_by_kernel": by,
+            "frame_ms": time_ms(lambda tile=tile, mn=mn, mx=mx:
+                                model(tile, mn, mx), 5, 5),
+            "plain_ms": plain_ms, "bound_ms": kb["bound_ms"],
+            "bound_by": kb["bound_by"]}
+        log(f"uint16 tile at {full}: {rep['scales'][full]}")
+        del tile
+    check(rep["scales"][scales[-1][0]]["max_sq_gradient"] >= 1 << 24,
+          "the full-range tile's squared gradients stay below 2^24")
+    rep["s"] = time.perf_counter() - t0
+    t = rep["scales"][scales[0][0]]
+    entry = {"name": "frontend_u16", "route": "cuda",
+             "source": "canny_edge_tpu_torch/kernels/csrc/frontend.cu",
+             "replaces": "canny_edge_tpu/kernels/frontend.py:153",
+             "launches": t["launches"]["frontend"], "max_abs_err": k1_err,
+             "ms": t["k1_ms"], "plain_ms": t["plain_ms"],
+             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+             "library_ms": None, "match": True,
+             "shape": f"{h}x{w} uint16, full scale {scales[0][0]}",
+             "device_ms": t["k1_device_ms"],
+             "ms_by_scale": {f: v["k1_ms"] for f, v in rep["scales"].items()},
+             "frame_ms_by_scale": {f: v["frame_ms"]
+                                   for f, v in rep["scales"].items()}}
+    return rep, [entry]
+
+
 def check_bounds(kernels):
     """Every ``bound_ms`` of the ``kernels`` line is
     ``utils.roofline.kernel_bounds``': a batch row's (``"batch"``) that of
@@ -3067,6 +3206,12 @@ def main():
                                               "plain_ms", "bound_ms")}
                         for w, t in cap["k4"]["times"].items()},
         "s": cap["s"]}), flush=True)
+    # ---- 16. uint16: a Sentinel-2 tile through the fused path ----
+    report["uint16"], u16_kernels = uint16_phase(dev, time_ms, device_ms)
+    check_bounds(u16_kernels)
+    kernels += u16_kernels
+    print("uint16: " + json.dumps({"card": card, **report["uint16"]}),
+          flush=True)
     report["total_s"] = time.perf_counter() - t_run
     log("report: " + json.dumps(report))
     out_dir = os.path.join(ROOT, "chiprun_out")     # listed in .gitignore

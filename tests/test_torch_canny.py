@@ -122,6 +122,8 @@ def test_strict_corner_image_vs_cannytpu():
     ((np.zeros((4, 4), np.uint8), 10, 256), ValueError),
     ((np.zeros((4, 4), np.float32), 10, 20), TypeError),
     ((torch.zeros((4, 4), dtype=torch.int16), 10, 20), TypeError),
+    ((np.zeros((4, 4), np.uint16), 1176, 3529), ValueError),
+    ((np.zeros((4, 4), np.uint16), 50, 50), ValueError),
 ])
 def test_validate_same_errors(args, exc):
     from canny_edge_tpu.models import CannyTPU
@@ -133,6 +135,30 @@ def test_validate_same_errors(args, exc):
         CannyTPU._validate(img if isinstance(img, np.ndarray) else img.numpy(),
                            mn, mx)
     assert str(ours.value) == str(theirs.value)
+
+
+def test_validate_uint16_on_purpose():
+    """A divergence on purpose: with ``wide`` (``fused`` or ``xla`` in
+    component mode) the port takes a uint16 frame and thresholds up to
+    65535, where ``CannyTPU`` refuses it; without, it refuses it as
+    ``CannyTPU`` does, in its order, and its ``TypeError`` goes on to name
+    the backend that takes it.  A uint8 frame keeps [0, 255] either way."""
+    from canny_edge_tpu.models import CannyTPU
+
+    img = np.zeros((4, 4), np.uint16)
+    for mn, mx in ((1176, 3529), (0, 65535)):
+        CannyTorch._validate(img, mn, mx, wide=True)
+        with pytest.raises((TypeError, ValueError)):
+            CannyTPU._validate(img, mn, mx)
+    with pytest.raises(ValueError, match=r"range of \[0,65535\]"):
+        CannyTorch._validate(img, 10, 65536, wide=True)
+    with pytest.raises(TypeError) as theirs:
+        CannyTPU._validate(img, 10, 20)
+    with pytest.raises(TypeError, match="taken by backend 'fused'") as ours:
+        CannyTorch._validate(img, 10, 20)
+    assert str(ours.value).startswith(str(theirs.value))
+    with pytest.raises(ValueError, match=r"range of \[0,255\]"):
+        CannyTorch._validate(np.zeros((4, 4), np.uint8), 10, 256, wide=True)
 
 
 def test_bad_mode_and_batch_shape():

@@ -103,7 +103,7 @@ def _max_window_at(lib, limit):
     block is ``limit`` bytes."""
     ctypes.c_int.in_dll(lib, "emu_optin").value = limit
     try:
-        return lib.canny_frontend_max_window()
+        return lib.canny_frontend_max_window(1)
     finally:
         ctypes.c_int.in_dll(lib, "emu_optin").value = H100_SMEM
 
@@ -118,7 +118,7 @@ def test_k1_path_for_smem_limit(k1_emu, limit, last):
     top = _max_window_at(k1_emu, limit)
     assert top == last
     fits = k1_emu.canny_frontend_smem_bytes
-    assert fits(last) <= limit < fits(last + 2)
+    assert fits(last, 1) <= limit < fits(last + 2, 1)
     for w in (3, 7):
         assert kfe.k1_path(w, top) == "tile"
     for w in (17, 81, 103, 105, 263, 265, 601, last):
@@ -152,8 +152,8 @@ def test_k1_ring_smem_bytes(k1_emu, window, want):
     assert sw % 8 == 4 and sw >= 76 + 2 * c
     assert want == ((window + 3) // 4 * 16 + (72 + 512 + 4) * 4
                     + 36 * 72 * 4 + 34 * 68 * 2 + ring + 32 * sw + 16)
-    assert k1_emu.canny_frontend_smem_bytes(window) == want
-    assert k1_emu.canny_frontend_smem_bytes(103) == 102160
+    assert k1_emu.canny_frontend_smem_bytes(window, 1) == want
+    assert k1_emu.canny_frontend_smem_bytes(103, 1) == 102160
 
 
 @pytest.mark.parametrize("w,band,asked,want", [
@@ -231,7 +231,7 @@ def test_card_mode_choice_mirrors_the_library(cuda_device):
     limit = smem_optin_bytes(cuda_device)
     top = kfe.max_window(cuda_device)
     fits = _build.load("frontend").canny_frontend_smem_bytes
-    assert fits(top) <= limit < fits(top + 2)
+    assert fits(top, 1) <= limit < fits(top + 2, 1)
     assert kfe.k1_path(top, top) != "scratch"
     assert kfe.k1_path(top + 2, top) == "scratch"
     lib = _build.load("hysteresis_banded")

@@ -47,6 +47,8 @@ from tools.cuda_emu import build
 
 MN, MX = 5, 20
 ROOT = Path(__file__).resolve().parents[1]
+# the bytes a pixel that K1's C entries take for a uint8 frame
+U8 = 1
 
 
 @pytest.fixture(scope="module")
@@ -100,7 +102,7 @@ def _outputs(lead, h, w, thresholds):
 def _ring_geometry(lib, b, oh, ow, window):
     """The C entry's geometry, or its error."""
     geo = (ctypes.c_longlong * 7)()
-    err = lib.canny_frontend_ring_geometry(b, oh, ow, window, geo)
+    err = lib.canny_frontend_ring_geometry(b, oh, ow, window, geo, U8)
     return kfe.RingGeometry(*geo) if err == 0 else err
 
 
@@ -159,9 +161,12 @@ def test_emulated_max_window_is_the_mirror(k1, limit):
     """The largest window mirrors the shared memory a window takes: every
     odd window up to it fits the limit, the next does not."""
     _card(k1, 4, optin=limit)
-    top = k1.canny_frontend_max_window()
+    top = k1.canny_frontend_max_window(U8)
     _card(k1, 4)
-    fits = k1.canny_frontend_smem_bytes
+
+    def fits(w):
+        return k1.canny_frontend_smem_bytes(w, U8)
+
     assert top >= 101
     assert all(fits(w) <= limit for w in range(3, top + 1, 2))
     assert fits(top + 2) > limit
@@ -186,7 +191,7 @@ def test_emulated_frame_equals_plain(k1, win, hw, sms):
     assert (ref > 0).any()
     for thr in (None, (MN, MX)):
         got, out = _outputs((), *hw, thr)
-        assert k1.canny_frontend(img.data_ptr(), 1, *hw, taps.data_ptr(),
+        assert k1.canny_frontend(img.data_ptr(), U8, 1, *hw, taps.data_ptr(),
                                  win, *out, None) == 0
         want = (ref,) if thr is None else window.frontend_nm(img, kern, thr)
         assert all(_same(g, w) for g, w in zip(got, want))
@@ -205,7 +210,7 @@ def test_emulated_batch_equals_plain(k1, hw):
     imgs = torch.stack([_frame(*hw, seed=s) for s in range(3)])
     taps = torch.from_numpy(kern)
     (nm,), out = _outputs((3,), *hw, None)
-    assert k1.canny_frontend(imgs.data_ptr(), 3, *hw, taps.data_ptr(),
+    assert k1.canny_frontend(imgs.data_ptr(), U8, 3, *hw, taps.data_ptr(),
                              len(kern), *out, None) == 0
     _launched_is_the_geometry(k1, 3, *hw, len(kern))
     for i in range(3):
@@ -254,7 +259,7 @@ def test_emulated_ring_geometry_of_the_wide_cell(cards, monkeypatch):
     assert set(_segments(spans, 34)) == {2, 3}
     for bad in ((8, 1080, 1920, 103), (8, 1080, 1920, 120),
                 (0, 1080, 1920, 121), (8, 0, 1920, 121),
-                (8, 1080, 1920, k1.canny_frontend_max_window() + 2)):
+                (8, 1080, 1920, k1.canny_frontend_max_window(U8) + 2)):
         assert _ring_geometry(k1, *bad) != 0, bad
     monkeypatch.setattr(kfe._build, "load", lambda name: k1)
     monkeypatch.setattr(kfe._build, "device_guard",
@@ -364,7 +369,7 @@ def test_emulated_long_run_equals_plain(cards):
     assert (ref > 0).any()
     for thr in (None, (MN, MX)):
         got, out = _outputs((), *hw, thr)
-        assert k1.canny_frontend(img.data_ptr(), 1, *hw, taps.data_ptr(),
+        assert k1.canny_frontend(img.data_ptr(), U8, 1, *hw, taps.data_ptr(),
                                  105, *out, None) == 0
         want = (ref,) if thr is None else window.frontend_nm(img, kern, thr)
         assert all(_same(g, w) for g, w in zip(got, want))
@@ -398,7 +403,7 @@ def test_emulated_spans_across_strips_and_frames_equal_plain(
     assert (starts > 0).sum() == (2 if sms > 1 else 0)
     for thr in (None, (MN, MX)):
         got, out = _outputs((b,), *hw, thr)
-        assert k1.canny_frontend(imgs.data_ptr(), b, *hw, taps.data_ptr(),
+        assert k1.canny_frontend(imgs.data_ptr(), U8, b, *hw, taps.data_ptr(),
                                  win, *out, None) == 0
         assert tuple((ctypes.c_uint * 3).in_dll(k1, "emu_grid")) == \
             (g.blocks, 1, 1)
@@ -418,11 +423,11 @@ def test_emulated_scratch_path_past_the_ring(k1):
     img = _frame(h, w)
     taps = torch.from_numpy(kern)
     (nm,), out = _outputs((), h, w, None)
-    assert k1.canny_frontend(img.data_ptr(), 1, h, w, taps.data_ptr(), 619,
+    assert k1.canny_frontend(img.data_ptr(), U8, 1, h, w, taps.data_ptr(), 619,
                              *out, None) != 0
     n = kfe.scratch_floats(1, h, w, 619)
     scratch = torch.zeros(n, dtype=torch.float32)
-    assert k1.canny_frontend_large(img.data_ptr(), 1, 0, h, w, 0, 0, h, w,
+    assert k1.canny_frontend_large(img.data_ptr(), U8, 1, 0, h, w, 0, 0, h, w,
                                    taps.data_ptr(), 619, *out,
                                    scratch.data_ptr(), n, None) == 0
     assert _same(nm, window.frontend_nm(img, kern))
@@ -472,7 +477,7 @@ def test_emulated_plan_runs_k1_then_k2(k1, win, kind, k2_err, device, want):
                       None if kind == "packed" else edges.data_ptr(),
                       ctl.data_ptr(), total.data_ptr(), 1234,
                       ctypes.cast(k2, ctypes.c_void_p).value, device, b, h, w,
-                      win, MN, MX, 1)
+                      win, MN, MX, 1, U8)
     run = kplan._RUN(("canny_run_plan", k1))     # as a plan calls it
     assert run(ctypes.addressof(args), imgs.data_ptr(), out.data_ptr(),
                5 << 32) == want
@@ -501,7 +506,7 @@ def test_emulated_plan_at_the_wide_cells_sigma(k1):
     mn, mx = conf["min_val"], conf["max_val"]
     assert len(kern) == 121 and (mn, mx) == (4, 12)
     _card(k1, 4)
-    assert kfe.k1_path(121, k1.canny_frontend_max_window()) == "ring"
+    assert kfe.k1_path(121, k1.canny_frontend_max_window(U8)) == "ring"
     b, h, w = 3, 96, 160
     imgs = torch.stack([_frame(h, w, seed=s) for s in range(b)])
     taps = torch.from_numpy(kern)
@@ -520,7 +525,7 @@ def test_emulated_plan_at_the_wide_cells_sigma(k1):
     args = kplan.Args(taps.data_ptr(), weak.data_ptr(), strong.data_ptr(),
                       edges.data_ptr(), ctl.data_ptr(), total.data_ptr(), 0,
                       ctypes.cast(k2, ctypes.c_void_p).value, 0, b, h, w,
-                      121, mn, mx, 0)
+                      121, mn, mx, 0, U8)
     run = kplan._RUN(("canny_run_plan", k1))
     assert run(ctypes.addressof(args), imgs.data_ptr(), out.data_ptr(),
                1 << 32) == 0

@@ -142,15 +142,21 @@ def _frame_of(dtype):
 def test_other_dtypes_pinned(dtype, backend):
     """Past the uint8 contract: the port's ``xla`` equals JAX's ``xla``
     (JAX's own ``pallas`` differs from it there, so no single JAX answer
-    exists); the port's ``fused`` and ``pallas`` refuse the frame.  The
-    uint16 frame's gradients pass int32's range: the plain front end
+    exists); the port's ``fused`` takes a uint16 frame and equals its
+    ``xla`` there, and refuses the others, as ``pallas`` refuses all three.
+    The uint16 frame's gradients pass int32's range: the plain front end
     squares them in int64 (JAX's in float32, exact on this frame)."""
     img, mn, mx = _frame_of(dtype)
 
-    def port():
+    def port(backend=backend):
         return port_canny.canny_fn(torch.from_numpy(img), mn, mx,
                                    kernel_vals=K14, backend=backend)
 
+    if (dtype, backend) == ("uint16", "fused"):
+        want = port("xla").numpy()
+        assert (want == 255).any()
+        np.testing.assert_array_equal(port().numpy(), want)
+        return
     if backend != "xla":
         with pytest.raises(ValueError, match="expected a non-empty uint8"):
             port()

@@ -83,7 +83,7 @@ def test_plan_key_joins_what_the_kernels_take_alike():
 GEOMETRY_CALLS = []
 
 
-def _ring_geometry(b, oh, ow, window, device):
+def _ring_geometry(b, oh, ow, window, device, itemsize=1):
     """A stand-in for the library's ring geometry: numbers of its shape."""
     GEOMETRY_CALLS.append((b, oh, ow, window))
     return kfe.RingGeometry(132, ow, 2 * b * ow, oh, b * ow,
@@ -110,6 +110,7 @@ def stand_in(monkeypatch):
         p.shape, p.dtype = tuple(shape), torch.int16
         p.device, p.addr, p.keep = torch.device("cpu"), 0, key
         p.batch = len(shape) == 3 and shape[0] > 1
+        p.u16_frames = 0
         p.ring = kfe.ring_counts(b, *shape[-2:], window, p.device)
         p.run = lambda addr, img, out, token: calls.append(
             (key, img, out, token)) or 0
@@ -118,7 +119,7 @@ def stand_in(monkeypatch):
 
     monkeypatch.setattr(kplan, "_plans", {})
     monkeypatch.setattr(kplan, "_build_plan", build)
-    monkeypatch.setattr(kfe, "max_window", lambda dev: 613)
+    monkeypatch.setattr(kfe, "max_window", lambda dev, itemsize=1: 613)
     monkeypatch.setattr(kfe, "ring_geometry", _ring_geometry)
     monkeypatch.setattr(kplan, "_raw_stream", lambda idx: 7)
     monkeypatch.setattr(kplan, "applies", lambda img, taps: True)

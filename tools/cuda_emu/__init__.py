@@ -38,8 +38,11 @@ CSRC = HERE.parent.parent / "canny_edge_tpu_torch" / "kernels" / "csrc"
 
 # (pattern, replacement) applied to the source, in order
 REWRITES = [
-    # kernel<<<grid, block, smem, stream>>>(args) -> emu_launch(..., kernel, args)
-    (r"([\w:]+(?:<\w+>)?)\s*<<<(.*?)>>>\(", r"emu_launch(\2, \1, "),
+    # kernel<<<grid, block, smem, stream>>>(args) -> emu_launch(grid, block,
+    # smem, stream, a lambda that calls kernel, args): the call resolves a
+    # kernel name that names overloads
+    (r"([\w:]+(?:<\w+>)?)\s*<<<(.*?)>>>\(",
+     r"emu_launch(\2, [&](auto... a) { \1(a...); }, "),
     (r'asm\("sqrt\.approx\.f32.*?\)\);', "k = std::sqrt(n);"),
     (r'asm volatile\("bar\.sync %0, %1;".*?\);', "emu_bar_sync(id, n);"),
     (r'asm volatile\("bar\.arrive %0, %1;".*?\);', "emu_bar_arrive(id, n);"),

@@ -6,16 +6,50 @@ trace.py``), for a benchmark that records them over a traced slice:
   ``plan.launch`` on a launch plan, whose one C call launches K1 and K2)
   against the rest of its ``entry``;
 - :func:`split_call`: the card's idle time inside the harness's ``call``
-  spans, put down to the innermost program span open at each idle instant.
+  spans, put down to the innermost program span open at each idle instant;
+- :func:`counters` and :func:`moved`: the program's counters (K1's
+  launches, the uint16 frames it read, ``u16_frames``, its ring geometry,
+  K2's launches, the plans' builds and hits) and how far a slice moved
+  them.
 
-Both take the spans as :func:`canny_edge_tpu_torch.utils.trace.drain`
-returns them, with times on ``time.perf_counter()``.
+The first two take the spans as
+:func:`canny_edge_tpu_torch.utils.trace.drain` returns them, with times on
+``time.perf_counter()``.
 """
 
 from __future__ import annotations
 
 import bisect
+import importlib
 from collections import defaultdict
+
+# the program's counters: module of canny_edge_tpu_torch -> its names
+COUNTERS = {
+    "kernels.frontend": ("launches", "batch_launches", "u16_frames",
+                         "ring_launches", "ring_blocks", "ring_segments",
+                         "ring_xpass_rows", "ring_out_rows",
+                         "scratch_launches"),
+    "kernels.hysteresis_packed": ("launches", "batch_launches"),
+    "kernels.plan": ("plan_builds", "plan_hits"),
+}
+
+
+def counters() -> dict[str, int]:
+    """The program's counters as they stand, ``{"<module>.<name>": n}``
+    (``kernels.frontend.u16_frames``: frames K1 read as uint16, from its
+    wrapper's launches and its launch plans')."""
+    out = {}
+    for mod, names in COUNTERS.items():
+        m = importlib.import_module(f"canny_edge_tpu_torch.{mod}")
+        for n in names:
+            out[f"{mod}.{n}"] = getattr(m, n)
+    return out
+
+
+def moved(before: dict, after: dict) -> dict[str, int]:
+    """How far each counter moved from ``before`` to ``after`` (both of
+    :func:`counters`)."""
+    return {k: after[k] - before[k] for k in after}
 
 
 def per_request(spans) -> dict:

@@ -169,9 +169,10 @@ def main():
         taps = torch.from_numpy(gaussian_kernel((win // 2 - 0.5) / 3)).to(dev)
 
         def call():
-            err = lib.canny_frontend(img.data_ptr(), b, h, w, taps.data_ptr(),
-                                     win, 1, MN, MX, None, weak.data_ptr(),
-                                     strong.data_ptr(), stream)
+            err = lib.canny_frontend(img.data_ptr(), 1, b, h, w,
+                                     taps.data_ptr(), win, 1, MN, MX, None,
+                                     weak.data_ptr(), strong.data_ptr(),
+                                     stream)
             if err:
                 raise SystemExit(f"canny_frontend: CUDA error {err}")
 
@@ -189,7 +190,7 @@ def main():
             samples.append(list(stamps))
         med = np.median(np.array(samples), axis=0)
         geo = (ctypes.c_longlong * 7)()
-        lib.canny_frontend_ring_geometry(b, h, w, win, geo)
+        lib.canny_frontend_ring_geometry(b, h, w, win, geo, 1)
         print(f"window {win}, {b} frames: {float(np.median(ms)):.4f} ms a "
               f"call (events, median of 5); {geo[4]} blocks on {geo[0]} "
               f"slots, {geo[2]} segments ({geo[2] / geo[4]:.3f} a block), "
